@@ -1,21 +1,32 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one NVIDIA card and check it.
+"""Drive the PyTorch port's main paths on one NVIDIA card and check them.
 
 Phases (each exits non-zero on failure; none is caught and continued):
   1. device: the card's name and power limit;
-  2. build: compile the CUDA kernel from the checkout with nvcc (sm_90a) and
+  2. build: compile the CUDA kernels from the checkout with nvcc (sm_90a) and
      print ptxas's register / shared-memory / spill report;
-  3. kernel against its plain PyTorch version at every call shape of the main
-     path (encoder, decoder box level, decoder temporal) and at odd shapes;
-  4. kernel timing (CUDA events) beside the plain version, the grid_sample
-     composition (a yardstick the port never calls) and the least time the
-     card could take for the same work;
+  3. the forward kernel against its plain PyTorch version at every call shape
+     of the inference path (encoder, decoder box level, decoder temporal) and
+     at odd shapes; the backward kernel against autograd of the plain version,
+     and the forward kernel against the plain forward, at every call shape of
+     the training step; the backward also at odd shapes (D=16, D=48,
+     non-square levels, locations far outside);
+  4. kernel timing (CUDA events), forward (inference and training shapes)
+     and backward (training shapes), beside the plain version, the
+     grid_sample composition (a yardstick the port never calls) and the least
+     time the card could take for the same work;
   5. windowed VIS inference (inference_vis) at full width (R50, hidden 256,
      6+6 layers, 196 queries, 4-frame clips, 30-frame windows, 360x640) on a
      36-frame synthetic video with random weights from a seed: launch counts
      per call site, output checks, and on a small input the card's output
      against the port's CPU path (plain versions);
-  6. the kernel list as one JSON line; the card line; the result line.
+  6. the training step at full width (2 clips x 4 frames of 512x800, 20
+     instance slots, 25 classes, fp32) on a synthetic batch: s/step, peak
+     memory, forward and backward launches per call site, finite losses,
+     frozen parameters and buffers unchanged, a lower loss after a few steps;
+     then a tiny training step on the card against the port's CPU path (loss
+     dict, gradients, parameters after one step);
+  7. the kernel list as one JSON line; the card line; the result line.
 
 Usage: python3 chip_smoke.py   (needs one CUDA card; runs from the checkout)
 """
@@ -31,6 +42,7 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 FP32_FLOP_PER_S = 67e12     # H100 SXM fp32 outside the tensor cores
 ENC_SHAPES = ((48, 80), (24, 40), (12, 20), (6, 10))  # 384x640 padded frames
+TRAIN_SHAPES = ((64, 100), (32, 50), (16, 25), (8, 13))  # 512x800 padded frames
 PALLAS = "mdqe_cvpr2023_tpu/ops/deform_attn_pallas.py"
 SOURCE = "mdqe_cvpr2023_tpu_torch/ops/csrc/ms_deform_attn.cu"
 
@@ -58,6 +70,8 @@ def make_inputs(torch, B, Q, H, D, P, shapes, loc_mode, vdtype, seed):
         ref = np.concatenate(refs)[:Q].astype(np.float32)
         loc = ref[None, :, None, None, None, :] + rng.uniform(
             -0.05, 0.05, (B, Q, H, L, P, 2)).astype(np.float32)
+    elif loc_mode == "far":  # well outside the levels too
+        loc = rng.uniform(-1.5, 2.5, (B, Q, H, L, P, 2)).astype(np.float32)
     else:
         loc = rng.uniform(-0.1, 1.1, (B, Q, H, L, P, 2)).astype(np.float32)
     attw = rng.random((B, Q, H, L * P), dtype=np.float32)
@@ -88,12 +102,9 @@ def grid_sample_msda(torch, value, shapes, loc, attw):
     return out.view(B, H * D, Q).transpose(1, 2)
 
 
-def bound_of(torch, value, shapes, loc, attw):
-    """Least time for this call on an H100: the larger of (bytes it must move:
-    the value rows its in-range taps touch, locations, weights, output) over
-    HBM bandwidth and (2*D flops per in-range tap) over fp32 peak."""
+def taps_of(torch, value, shapes, loc):
+    """(distinct value rows the in-range taps touch, number of in-range taps)."""
     B, N, H, D = value.shape
-    _, Q, _, L, P, _ = loc.shape
     b = torch.arange(B, device=loc.device).view(B, 1, 1, 1)
     h = torch.arange(H, device=loc.device).view(1, 1, H, 1)
     rows, taps, start = [], 0, 0
@@ -106,12 +117,48 @@ def bound_of(torch, value, shapes, loc, attw):
             taps += int(ok.sum())
             rows.append((((b * N + start + cy * wl + cx) * H + h)[ok]).reshape(-1))
         start += hl * wl
-    touched = int(torch.unique(torch.cat(rows)).numel())
+    return int(torch.unique(torch.cat(rows)).numel()), taps
+
+
+def bound_of(torch, value, shapes, loc, attw):
+    """Least time for this call on an H100: the larger of (bytes it must move:
+    the value rows its in-range taps touch, locations, weights, output) over
+    HBM bandwidth and (2*D flops per in-range tap) over fp32 peak."""
+    B, N, H, D = value.shape
+    Q = loc.shape[1]
+    touched, taps = taps_of(torch, value, shapes, loc)
     nbytes = (touched * D * value.element_size() + loc.numel() * 4
               + attw.numel() * 4 + B * Q * H * D * 4)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = 2.0 * D * taps / FP32_FLOP_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes
+
+
+def bwd_bound_of(torch, value, shapes, loc, attw):
+    """Least time for the backward on an H100: the larger of (bytes: the value
+    rows the in-range taps touch, read; d(value) written once in full;
+    locations, weights and the output gradient read; d(locations) and
+    d(weights) written) over HBM bandwidth and (8*D flops per in-range tap:
+    the sample, its two derivatives, the scattered product) over fp32 peak.
+    Also returns the bytes and the number of fp32 atomics (one per channel
+    and in-range tap), which may be what limits the kernel."""
+    B, N, H, D = value.shape
+    Q = loc.shape[1]
+    touched, taps = taps_of(torch, value, shapes, loc)
+    nbytes = (touched * D * 4 + value.numel() * 4 + 2 * loc.numel() * 4
+              + 2 * attw.numel() * 4 + B * Q * H * D * 4)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 8.0 * D * taps / FP32_FLOP_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
+            nbytes, taps * D)
+
+
+def grads_of(torch, fn, value, loc, attw, gout, retain=False):
+    """Leaves (value, loc, attw) with gradients, fn's output on them, and the
+    gradients of <output, gout>."""
+    leaves = [t.detach().clone().requires_grad_(True) for t in (value, loc, attw)]
+    out = fn(*leaves)
+    return leaves, out, torch.autograd.grad(out, leaves, gout, retain_graph=retain)
 
 
 def time_ms(torch, fn, iters, warmup=2):
@@ -125,6 +172,249 @@ def time_ms(torch, fn, iters, warmup=2):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+# backward checks: site, B, Q, H, D, P, shapes, loc mode (the training step's
+# call shapes, then odd ones). Tolerance per output: 1e-4 of its largest
+# entry (at least 1e-4): warp sums in another order than autograd's, and
+# d(value) summed with fp32 atomics in an order that changes between runs.
+BWD_CHECKS = [
+    ("encoder", 8, 8504, 8, 32, 4, TRAIN_SHAPES, "local"),
+    ("decoder_box", 8, 196, 8, 32, 4, TRAIN_SHAPES, "uniform"),
+    ("decoder_inst", 2, 196, 8, 32, 4, ((64, 100),) * 4, "uniform"),
+    ("odd", 3, 70, 3, 16, 3, ((10, 6), (7, 13), (3, 5)), "far"),
+    ("odd", 2, 45, 2, 48, 2, ((9, 4), (2, 11)), "uniform"),
+]
+BWD_REPLACES = f"{PALLAS}:225,278,768,789"  # _bwd_sample/_bwd_value, banded pair
+
+
+def bwd_inputs(torch, B, Q, H, D, P, shapes, mode, seed):
+    v, lo, aw = make_inputs(torch, B, Q, H, D, P, shapes, mode, torch.float32, seed)
+    gout = np.random.default_rng(seed + 1000).standard_normal((B, Q, H * D), dtype=np.float32)
+    return v, lo, aw, torch.from_numpy(gout).to(v.device)
+
+
+def check_backward(torch, da):
+    """The backward kernel against autograd of the plain version at every row
+    of BWD_CHECKS and, at the training step's rows, the forward kernel against
+    the plain output on the same inputs (tolerance 1e-4, as at the inference
+    shapes). Returns max |err| per site: backward, training-shape forward."""
+    max_err, fwd_err = {}, {}
+    for k, (site, B, Q, H, D, P, shapes, mode) in enumerate(BWD_CHECKS):
+        v, lo, aw, gout = bwd_inputs(torch, B, Q, H, D, P, shapes, mode, seed=200 + k)
+        got = da.ms_deform_attn_bwd_cuda(v, shapes, lo, aw, gout)
+        _, plain_out, want = grads_of(
+            torch, lambda a, b, c: da.ms_deform_attn_plain(a, shapes, b, c), v, lo, aw, gout)
+        fwd = ""
+        if site != "odd":
+            out = da.ms_deform_attn_cuda(v, shapes, lo, aw)
+            err = float((out - plain_out).abs().max())
+            fwd_err[site] = max(fwd_err.get(site, 0.0), err)
+            if not (err <= 1e-4 and bool(torch.isfinite(out).all())):
+                fail(f"forward kernel disagrees with its plain version at the training "
+                     f"shape of {site}: max|err| {err:.3e}")
+            fwd = f"fwd {err:.2e} (tol 1e-4), "
+            del out
+        torch.cuda.synchronize()
+        errs, ok = [], True
+        for name, g, w in zip(("value", "loc", "attw"), got, want):
+            err = float((g - w).abs().max())
+            tol = 1e-4 * max(1.0, float(w.abs().max()))
+            errs.append(f"d{name} {err:.2e} (tol {tol:.1e})")
+            ok = ok and err <= tol and bool(torch.isfinite(g).all())
+            max_err[site] = max(max_err.get(site, 0.0), err)
+        print(f"bwd {site:12s} B={B} Q={Q} H={H} D={D} P={P} L={len(shapes)} {mode:7s} "
+              f"max|err| {fwd}{', '.join(errs)} {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            fail(f"backward kernel disagrees with autograd of the plain version at {site}")
+        del got, want, plain_out, v, lo, aw, gout
+    return max_err, fwd_err
+
+
+def time_backward(torch, da):
+    """At the training step's call shapes: ms per backward launch beside the
+    plain version's backward, the grid_sample form's backward and the bound;
+    and ms per forward launch beside the plain forward, the grid_sample form
+    and the forward's bound."""
+    timings, fwd_timings = {}, {}
+    for k, (site, B, Q, H, D, P, shapes, mode) in enumerate(BWD_CHECKS[:3]):
+        v, lo, aw, gout = bwd_inputs(torch, B, Q, H, D, P, shapes, mode, seed=300 + k)
+        ms = time_ms(torch, lambda: da.ms_deform_attn_bwd_cuda(v, shapes, lo, aw, gout), 20)
+        leaves, out, _ = grads_of(
+            torch, lambda a, b, c: da.ms_deform_attn_plain(a, shapes, b, c),
+            v, lo, aw, gout, retain=True)
+        plain_ms = time_ms(torch, lambda: torch.autograd.grad(out, leaves, gout,
+                                                               retain_graph=True), 3)
+        del out
+        leaves, out, _ = grads_of(
+            torch, lambda a, b, c: grid_sample_msda(torch, a, shapes, b, c),
+            v, lo, aw, gout, retain=True)
+        lib_ms = time_ms(torch, lambda: torch.autograd.grad(out, leaves, gout,
+                                                             retain_graph=True), 3)
+        del out, leaves
+        bound_ms, bound_by, nbytes, atomics = bwd_bound_of(torch, v, shapes, lo, aw)
+        timings[site] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                             bound_ms=bound_ms, bound_by=bound_by)
+        print(f"bwd {site:12s} B={B} Q={Q} kernel {ms:.4f} ms | plain backward "
+              f"{plain_ms:.3f} ms | grid_sample form backward {lib_ms:.3f} ms | bound "
+              f"{bound_ms * 1e3:.1f} us by {bound_by} ({nbytes / 1e6:.1f} MB) | "
+              f"{atomics / 1e6:.2f} M fp32 atomics | {bound_ms / ms:.1%} of bound",
+              flush=True)
+        f_ms = time_ms(torch, lambda: da.ms_deform_attn_cuda(v, shapes, lo, aw), 20)
+        f_plain = time_ms(torch, lambda: da.ms_deform_attn_plain(v, shapes, lo, aw), 3)
+        f_lib = time_ms(torch, lambda: grid_sample_msda(torch, v, shapes, lo, aw), 3)
+        f_bound, f_by, f_bytes = bound_of(torch, v, shapes, lo, aw)
+        fwd_timings[site] = dict(ms=f_ms, plain_ms=f_plain, library_ms=f_lib,
+                                 bound_ms=f_bound, bound_by=f_by)
+        print(f"fwd {site:12s} B={B} Q={Q} float32  kernel {f_ms:.4f} ms | plain "
+              f"{f_plain:.3f} ms | grid_sample form {f_lib:.3f} ms | bound "
+              f"{f_bound * 1e3:.1f} us by {f_by} ({f_bytes / 1e6:.1f} MB) | "
+              f"{f_bound / f_ms:.1%} of bound", flush=True)
+        del v, lo, aw, gout
+    return timings, fwd_timings
+
+
+def expected_train_launches(cfg):
+    """Launches per training step and call site, forward and backward alike."""
+    return {"encoder": cfg.enc_layers, "decoder_box": cfg.dec_layers,
+            "decoder_inst": cfg.dec_layers * cfg.n_feature_levels}
+
+
+def train_full_width(torch, da, card, bwd_timings):
+    """The training step at full width; returns the forward and backward
+    launch counts of its timed steps."""
+    from mdqe_cvpr2023_tpu_torch.models.detr import MDQEModel
+    from mdqe_cvpr2023_tpu_torch.parallel import train as ptrain
+    cfg = ptrain.TRAIN_CFG
+    t0 = time.perf_counter()
+    model = MDQEModel(cfg, device="cuda", seed=0)
+    # the JAX package's loss-decrease settings (tests/test_train_step.py)
+    opt = ptrain.make_optimizer(model, ptrain.TrainCfg(base_lr=1e-3, steps=(1000,),
+                                                       clip_norm=1.0))
+    trainable = {n for n, p in model.named_parameters() if p.requires_grad}
+    frozen = {k: v.clone() for k, v in model.state_dict().items() if k not in trainable}
+    step = ptrain.make_train_step(ptrain.TRAIN_CRIT)
+    batch = ptrain.to_device(ptrain.synthetic_batch(seed=0), "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    print(f"model {sum(p.numel() for p in model.parameters()) / 1e6:.1f} M parameters "
+          f"({len(trainable)} trainable tensors, {len(frozen)} frozen or buffers); "
+          f"batch {tuple(batch['images'].shape)} uint8, "
+          f"{int(batch['valid'].sum())} instances; set-up {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    totals = []
+    t0 = time.perf_counter()
+    total, ldict = step(model, opt, batch, gen)
+    totals.append(total)
+    torch.cuda.synchronize()
+    print(f"warm-up step {time.perf_counter() - t0:.2f} s", flush=True)
+
+    n_steps = 3
+    torch.cuda.reset_peak_memory_stats()
+    da.reset_launches()
+    walls = []
+    for _ in range(n_steps):
+        t0 = time.perf_counter()
+        total, ldict = step(model, opt, batch, gen)
+        totals.append(total)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    fwd, bwd = dict(da.LAUNCHES), dict(da.BWD_LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    s_step = sum(walls) / n_steps
+    totals = [float(t) for t in totals]
+    print(f"training step: {', '.join(f'{w:.4f}' for w in walls)} s -> {s_step:.4f} s/step, "
+          f"{ptrain.CLIPS / s_step:.3f} clips/s ({card})")
+    print(f"peak device memory {peak / 2 ** 30:.2f} GiB")
+    print(f"launches in {n_steps} steps: forward {json.dumps(fwd)}, backward {json.dumps(bwd)}")
+    print(f"total loss per step {[round(t, 4) for t in totals]}")
+    print(f"losses {json.dumps({k: round(float(v), 4) for k, v in ldict.items()})}")
+    share = sum(bwd_timings[s]["ms"] * n for s, n in bwd.items()) / n_steps / (s_step * 1e3)
+    print(f"backward kernel at its timed per-launch cost: {share:.1%} of the step", flush=True)
+
+    want = {k: n_steps * v for k, v in expected_train_launches(cfg).items()}
+    if fwd != want or bwd != want:
+        fail(f"training launches {fwd} / {bwd}, want {want} each")
+    if not all(np.isfinite(totals)) or not all(
+            bool(torch.isfinite(v)) for v in ldict.values()):
+        fail("non-finite training loss")
+    if not totals[-1] < totals[0]:
+        fail(f"the total loss did not fall on a fixed batch: {totals}")
+    state = model.state_dict()
+    changed = [k for k, v in frozen.items() if not torch.equal(state[k], v)]
+    if changed:
+        fail(f"frozen parameters or buffers changed: {changed[:5]}")
+    del model, opt, batch, frozen, state
+    torch.cuda.empty_cache()
+    return fwd, bwd
+
+
+def tiny_train_card_vs_cpu(torch):
+    """One training step of the tiny configuration on the card and on the
+    port's CPU path, dropout 0, the same reid priorities. Tolerances (those of
+    tests/test_torch_train_step.py against JAX): losses rtol 1e-4; the global
+    gradient norm rtol 1e-4; per trainable leaf max |err| <= 0.1 s + 1e-6 G
+    and cosine >= 0.9999 where s > 1e-4 G (s the leaf's largest CPU gradient,
+    G the model's); after the step, frozen parameters and buffers equal, the
+    trainable entries 99% within 0.01 lr, 99.9% within 0.05 lr, all within lr
+    (Adam's first step is about lr * sign(g))."""
+    from mdqe_cvpr2023_tpu_torch.engine.weights import grad_state_dict
+    from mdqe_cvpr2023_tpu_torch.losses.criterion import CriterionCfg
+    from mdqe_cvpr2023_tpu_torch.models.detr import MDQEModel, MDQEModelCfg
+    from mdqe_cvpr2023_tpu_torch.parallel import train as ptrain
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tiny = MDQEModelCfg(backbone="resnet50", num_classes=5, hidden_dim=64, n_heads=4,
+                        enc_layers=1, dec_layers=1, n_frames=2, n_query=16,
+                        query_embed_dim=8, dec_temporal=True)
+    crit = CriterionCfg(num_classes=5, n_frames=2, n_query=16, num_points=64)
+    tc = ptrain.TrainCfg()
+    batch = ptrain.synthetic_batch(seed=1, clips=2, frames=2, hp=128, wp=128, slots=3,
+                               n_inst=2, num_classes=5)
+    pri = torch.rand((2, 3, 2, 2 * 16), generator=torch.Generator().manual_seed(2))
+    res = {}
+    for dev in ("cuda", "cpu"):
+        model = MDQEModel(tiny, device=dev, seed=3)
+        opt = ptrain.make_optimizer(model, tc)
+        opt.zero_grad()
+        total, ldict = ptrain.loss_fn(model, crit, ptrain.to_device(batch, dev), None,
+                                      dropout_rate=0.0, reid_priorities=pri.to(dev))
+        total.backward()
+        grads = grad_state_dict(model)
+        trainable = {n for n, p in model.named_parameters() if p.requires_grad}
+        opt.step()
+        res[dev] = (total.item(), {k: v.item() for k, v in ldict.items()}, grads,
+                    {k: v.cpu().double().numpy() for k, v in model.state_dict().items()},
+                    trainable)
+    (tg, lg, gg, pg, trainable), (tc_, lc, gc, pc, _) = res["cuda"], res["cpu"]
+    loss_err = max(abs(lg[k] - lc[k]) / max(abs(lc[k]), 1e-12) for k in lc)
+    loss_err = max(loss_err, abs(tg - tc_) / abs(tc_))
+    norm_g = np.sqrt(sum(float((gg[k].astype(np.float64) ** 2).sum()) for k in trainable))
+    norm_c = np.sqrt(sum(float((gc[k].astype(np.float64) ** 2).sum()) for k in trainable))
+    G = max(np.abs(gc[k]).max() for k in trainable)
+    worst_rel, worst_cos, bad = 0.0, 1.0, []
+    for k in trainable:
+        g, c = gg[k].astype(np.float64), gc[k].astype(np.float64)
+        s_ = np.abs(c).max()
+        err = np.abs(g - c).max()
+        worst_rel = max(worst_rel, err / max(s_, 1e-30) if s_ > 1e-4 * G else 0.0)
+        if err > 0.1 * s_ + 1e-6 * G:
+            bad.append(f"{k} err {err:.2e} s {s_:.2e}")
+        if s_ > 1e-4 * G:
+            cos = (g * c).sum() / (np.linalg.norm(g) * np.linalg.norm(c))
+            worst_cos = min(worst_cos, cos)
+    lr = tc.base_lr
+    diffs = np.concatenate([np.abs(pg[k] - pc[k]).ravel() for k in trainable]) / lr
+    frozen_diff = max(float(np.abs(pg[k] - pc[k]).max()) for k in pc if k not in trainable)
+    q99, q999 = np.quantile(diffs, [0.99, 0.999])
+    print(f"tiny step card vs CPU: losses max rel err {loss_err:.2e} (tol 1e-4); grad norm "
+          f"{norm_g:.6f} vs {norm_c:.6f} (rel {abs(norm_g - norm_c) / norm_c:.2e}, tol 1e-4); "
+          f"per leaf worst max|err|/s {worst_rel:.2e} (tol 0.1), worst cosine "
+          f"{worst_cos:.6f} (tol 0.9999); after one step |dparam|/lr q99 {q99:.2e} "
+          f"(tol 0.01), q99.9 {q999:.2e} (tol 0.05), max {diffs.max():.3f} (tol 1), "
+          f"frozen max diff {frozen_diff:.1e} (tol 0)", flush=True)
+    if (loss_err > 1e-4 or abs(norm_g - norm_c) / norm_c > 1e-4 or bad or worst_cos < 0.9999
+            or q99 > 0.01 or q999 > 0.05 or diffs.max() > 1.0 or frozen_diff != 0):
+        fail(f"the tiny training step on the card disagrees with the CPU path: {bad[:5]}")
 
 
 def check_outputs(out, n_frames, hw, num_classes):
@@ -205,6 +495,9 @@ def main():
         max_err[site] = max(max_err.get(site, 0.0), err)
         del got, want, v, lo, aw
 
+    phase("backward kernel against autograd of the plain version")
+    bwd_max_err, train_fwd_err = check_backward(torch, da)
+
     # ---- 4. kernel timing ----------------------------------------------------
     phase(f"kernel timing ({card})")
     timing_shapes = {
@@ -236,6 +529,9 @@ def main():
         if lib_err > 1e-3:
             fail(f"grid_sample composition disagrees at {site}")
         del v, lo, aw
+
+    phase(f"backward kernel timing ({card})")
+    bwd_timings, train_fwd_timings = time_backward(torch, da)
 
     # ---- 5. main path ----------------------------------------------------------
     phase("main path: inference_vis at full width")
@@ -328,13 +624,36 @@ def main():
             or score_err > 5e-3 or (ious and min(ious) < 0.99)):
         fail("the card's output disagrees with the CPU path on the small input")
 
-    # ---- 6. results ------------------------------------------------------------
+    del model, m_gpu, m_cpu
+    torch.cuda.empty_cache()
+
+    # ---- 6. training -------------------------------------------------------------
+    phase(f"main path: the training step at full width ({card})")
+    train_fwd_launches, train_bwd_launches = train_full_width(torch, da, card, bwd_timings)
+    phase("tiny training step: the card's path against the port's CPU path")
+    tiny_train_card_vs_cpu(torch)
+
+    # ---- 7. results ------------------------------------------------------------
     kernels = []
     for site, t in timings.items():
         kernels.append({
             "name": f"ms_deform_attn_fwd[{site}]", "route": "cuda", "source": SOURCE,
             "replaces": t["replaces"], "launches": launches[site],
             "max_abs_err": max_err[site], "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"]})
+    for site, t in train_fwd_timings.items():
+        kernels.append({
+            "name": f"ms_deform_attn_fwd[{site},train]", "route": "cuda", "source": SOURCE,
+            "replaces": f"{PALLAS}:121", "launches": train_fwd_launches[site],
+            "max_abs_err": train_fwd_err[site], "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"]})
+    for site, t in bwd_timings.items():
+        kernels.append({
+            "name": f"ms_deform_attn_bwd[{site}]", "route": "cuda", "source": SOURCE,
+            "replaces": BWD_REPLACES, "launches": train_bwd_launches[site],
+            "max_abs_err": bwd_max_err[site], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"]})
     print(json.dumps({"kernels": kernels}))

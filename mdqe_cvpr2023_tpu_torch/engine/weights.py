@@ -1,4 +1,5 @@
-"""Load a JAX-package parameter tree into the port's model.
+"""Load a JAX-package parameter tree into the port's model, and give the
+port's gradients back under the same names.
 
 The JAX tree mirrors the Detectron2 module names and its leaves already have
 torch shapes (OIHW convolutions, (out, in) linears), so loading is a renaming:
@@ -63,3 +64,18 @@ def load_jax_params(model: nn.Module, tree) -> None:
         if tuple(arr.shape) != tuple(dst[name].shape):
             raise ValueError(f"{name}: shape {arr.shape} != {tuple(dst[name].shape)}")
         dst[name].copy_(torch.from_numpy(np.array(arr)))
+
+
+def grad_state_dict(model: nn.Module) -> Dict[str, np.ndarray]:
+    """The gradients of ``model``'s parameters as a flat dict under the
+    Detectron2 names (the ``state_dict`` keys), zeros for parameters without a
+    gradient and for buffers: the JAX package's ``convert_torch_state_dict``
+    turns it into a tree leaf-aligned with its parameter tree."""
+    out = {}
+    for name, p in model.named_parameters():
+        g = p.grad
+        out[name] = (np.zeros(p.shape, np.float32) if g is None
+                     else np.array(g.detach().float().cpu()))  # a copy: steps clip in place
+    for name, b in model.named_buffers():
+        out[name] = np.zeros(b.shape, np.float32)
+    return out

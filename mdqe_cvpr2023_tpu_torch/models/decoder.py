@@ -1,7 +1,9 @@
-"""Transformer decoder, eval path (counterpart of
-``mdqe_cvpr2023_tpu/models/decoder.py``): grid-guided query initialization,
-inter-frame query association, the two-level (box / instance) deformable
-decoder with iterative box refinement, and the output heads."""
+"""Transformer decoder (counterpart of ``mdqe_cvpr2023_tpu/models/decoder.py``):
+grid-guided query initialization, inter-frame query association, the two-level
+(box / instance) deformable decoder with iterative box refinement, and the
+output heads. ``forward`` is the eval path (last layer only); ``forward_train``
+returns every layer's outputs and the query-init aux for the criterion, with
+six dropout sites per layer drawn from a generator."""
 from __future__ import annotations
 
 import math
@@ -15,7 +17,7 @@ from torch import nn
 
 from ..utils.boxes import box_cxcywh_to_xyxy, box_xyxy_to_cxcywh
 from ..utils.misc import grid_sample, interpolate_bilinear, inverse_sigmoid
-from ..utils.nn import MLP, LayerNorm, MultiheadAttention
+from ..utils.nn import MLP, LayerNorm, MultiheadAttention, dropout
 from .attention import MSDeformAttn, MSDeformAttnCfg
 from .mask_head import MaskHead, MaskHeadCfg
 
@@ -105,7 +107,7 @@ def grid_guided_query_selection(cfg: DecoderCfg, rpn_cls_conf):
 
 
 def inter_frame_query_association(cfg: DecoderCfg, query_init, query_coords,
-                                  query_embed, n_frames: int):
+                                  query_embed, n_frames: int, training: bool = False):
     """Align each frame's queries to the central frame by embedding similarity
     within a relative-position window (halved at test time)."""
     BT, Q, C = query_init.shape
@@ -113,7 +115,7 @@ def inter_frame_query_association(cfg: DecoderCfg, query_init, query_coords,
         return query_init, query_coords
     B = BT // n_frames
     ct = (n_frames - 1) // 2
-    w = cfg.window_inter_frame_asso / 2
+    w = cfg.window_inter_frame_asso if training else cfg.window_inter_frame_asso / 2
     emb = query_embed.reshape(B, n_frames, Q, -1)
     sim = torch.einsum("btqc,bkc->btqk", emb, emb[:, ct])
     relpos = torch.from_numpy(query_relpos_grid(cfg.n_query_bins)).to(sim.device)
@@ -193,16 +195,25 @@ class DecoderLayer(nn.Module):
         if self.cfg.use_tca:
             self.temp_attn_inst.reset_parameters(gen)
 
+    def ffn(self, x, suffix: str = "", drop_rate: float = 0.0, generator=None):
+        lin1 = getattr(self, "linear1" + suffix)
+        lin2 = getattr(self, "linear2" + suffix)
+        h = dropout(F.gelu(lin1(x)), drop_rate, generator)
+        x = x + dropout(lin2(h), drop_rate, generator)
+        return getattr(self, "norm3" + suffix)(x)
+
     def forward(self, x, x_pos, x_ref_boxes, x_inst, x_inst_pos,
-                x_inst_ref_boxes, src, spatial_shapes, padding_mask, T: int):
+                x_inst_ref_boxes, src, spatial_shapes, padding_mask, T: int,
+                drop_rate: float = 0.0, generator=None):
         cfg = self.cfg
+        drop = lambda t: dropout(t, drop_rate, generator)  # noqa: E731
         # box level (per frame, BT batch)
         x2 = self.cross_attn(x + x_pos, x_ref_boxes, src, spatial_shapes, padding_mask)
-        x = self.norm2(x + x2)
+        x = self.norm2(x + drop(x2))
         shortcut_x = x
         q = x + x_pos
-        x = self.norm1(x + self.self_attn(q, q, x))
-        x = self.norm3(x + self.linear2(F.gelu(self.linear1(x))))
+        x = self.norm1(x + drop(self.self_attn(q, q, x)))
+        x = self.ffn(x, "", drop_rate, generator)
         shortcut_w = x
 
         # instance level (per clip, B batch)
@@ -223,11 +234,11 @@ class DecoderLayer(nn.Module):
                     pm_t = torch.cat([pm_t] + [pm_t[:, -1:]] * pad, 1)
             x_inst2 = self.temp_attn_inst(x_inst2 + x_inst_pos, x_inst_ref_boxes,
                                           srcs_t, spatial_shapes, pm_t)
-        x_inst = self.norm2_inst(x_inst + x_inst2)
+        x_inst = self.norm2_inst(x_inst + drop(x_inst2))
         q_inst = x_inst + x_inst_pos
-        x_inst = self.norm1_inst(x_inst + self.self_attn_inst(q_inst, q_inst, x_inst))
-        x_inst = self.norm3_inst(
-            x_inst + self.linear2_inst(F.gelu(self.linear1_inst(x_inst))))
+        x_inst = self.norm1_inst(
+            x_inst + drop(self.self_attn_inst(q_inst, q_inst, x_inst)))
+        x_inst = self.ffn(x_inst, "_inst", drop_rate, generator)
         return x, x_inst
 
 
@@ -273,8 +284,12 @@ class TransformerDecoder(nn.Module):
             head.layers[-1].bias.fill_(-bias_value)
         self.bbox_embed.layers[-1].bias.zero_()
 
-    def query_initialization(self, encoded, spatial_shapes, n_frames: int):
-        """-> query (BT,Q,C), aligned query coords (BT,Q,2)."""
+    def query_initialization(self, encoded, spatial_shapes, n_frames: int,
+                             training: bool = False):
+        """-> query (BT,Q,C), aligned query coords (BT,Q,2), and the aux the
+        criterion reads: rpn_sem_cls (BT,H,W,K) logits, query_init_embed
+        (BT,Q,E) before association, query_coords_grid (BT,nb,nb,2) in
+        [-1, 1]."""
         cfg = self.cfg
         BT = encoded.shape[0]
         maps = encoded_to_maps(encoded, spatial_shapes)
@@ -285,43 +300,78 @@ class TransformerDecoder(nn.Module):
         feats = [grid_sample(f, grid, padding_mode="border") for f in maps]
         query_init = torch.stack(feats).mean(0).reshape(BT, cfg.n_query, -1)
         query_init_embed = self.track_embed(query_init)
-        return inter_frame_query_association(cfg, query_init, query_coords,
-                                             query_init_embed, n_frames)
+        query, coords_al = inter_frame_query_association(
+            cfg, query_init, query_coords, query_init_embed, n_frames, training)
+        aux = {"rpn_sem_cls": rpn_cls_conf, "query_init_embed": query_init_embed,
+               "query_coords_grid": grid}
+        return query, coords_al, aux
 
     def refine(self, x, x_ref_boxes):
-        """Box refinement in fp32; positional projection back in x's type."""
+        """Box refinement in fp32: the refined boxes (cxcywh), the next
+        layer's reference boxes (the same, with no gradient, as the JAX
+        package's stop_gradient) and the positional projection in x's type."""
         off = self.bbox_embed(self.decoder_norm(x)).float()
         boxes = torch.sigmoid(off + inverse_sigmoid(x_ref_boxes))
-        return boxes, self.point2pos_proj(boxes[..., :2]).to(x.dtype)
+        return boxes, boxes.detach(), self.point2pos_proj(boxes[..., :2]).to(x.dtype)
 
     def decoder_loop(self, x, x_ref_points, src, spatial_shapes, padding_mask,
-                     T: int):
-        """-> last-layer instance queries (B,Q,C) (eval only needs the last)."""
+                     T: int, drop_rate: float = 0.0, generator=None):
+        """-> lists of the instance queries (B,Q,C) and refined boxes (BT,Q,4)
+        cxcywh after the warm-up refinement and each layer (L+1 entries)."""
         cfg = self.cfg
         BT, Q, C = x.shape
         B = BT // T
         ct = (T - 1) // 2
         x_ref_boxes = torch.cat([x_ref_points, torch.full_like(x_ref_points, 0.1)], -1)
         x_inst = x.reshape(B, T, Q, C)[:, ct]
-        x_ref_boxes, x_pos = self.refine(x, x_ref_boxes)
+        x_boxes, x_ref_boxes, x_pos = self.refine(x, x_ref_boxes)
         x_inst_ref = clip_ref_boxes(cfg, x_ref_boxes, T)
         x_inst_pos = self.point2pos_proj(x_inst_ref[..., :2]).to(x.dtype)
+        insts, boxes = [x_inst], [x_boxes]
         for layer in self.decoder.layers:
             x, x_inst = layer(x, x_pos, x_ref_boxes, x_inst, x_inst_pos, x_inst_ref,
-                              src, spatial_shapes, padding_mask, T)
-            x_ref_boxes, x_pos = self.refine(x, x_ref_boxes)
+                              src, spatial_shapes, padding_mask, T, drop_rate,
+                              generator)
+            x_boxes, x_ref_boxes, x_pos = self.refine(x, x_ref_boxes)
             x_inst_ref = clip_ref_boxes(cfg, x_ref_boxes, T)
             x_inst_pos = self.point2pos_proj(x_inst_ref[..., :2]).to(x.dtype)
-        return x_inst
+            insts.append(x_inst)
+            boxes.append(x_boxes)
+        return insts, boxes
+
+    def forward_train(self, encoded, padding_mask, spatial_shapes, n_frames: int,
+                      drop_rate: float = 0.0, generator=None):
+        """``decoder_apply(training=True)``: every layer's outputs.
+        Returns {'cls' (L+1,B,Q,K) logits, 'boxes' (L+1,B,Q,T,4) xyxy,
+        'mask_coeff' (L+1,B,Q,M), 'proto' (BT,h4,w4,M), 'query_init' (aux of
+        ``query_initialization``), 'query_coords' (BT,Q,2)}."""
+        T = n_frames
+        query, query_coords, aux = self.query_initialization(
+            encoded, spatial_shapes, T, training=True)
+        insts, boxes = self.decoder_loop(
+            query, query_coords, encoded, spatial_shapes, padding_mask, T,
+            drop_rate, generator)
+        inter_inst, inter_boxes = torch.stack(insts), torch.stack(boxes)
+        L1, BT, Q, _ = inter_boxes.shape
+        boxes = inter_boxes.reshape(L1, BT // T, T, Q, 4).transpose(2, 3)
+        normed = self.decoder_norm(inter_inst)
+        maps = encoded_to_maps(encoded, spatial_shapes)
+        return {"cls": self.cls_embed(normed),
+                "boxes": box_cxcywh_to_xyxy(boxes),
+                "mask_coeff": torch.tanh(self.mask_embed(normed)),
+                "proto": self.mask_head(maps[2], [maps[1], maps[0]]),
+                "query_init": aux,
+                "query_coords": query_coords}
 
     def forward(self, encoded, padding_mask, spatial_shapes, n_frames: int):
         """Eval ``decoder_apply(training=False)`` for the VIS path.
         encoded (BT,N,C), padding_mask (BT,N) True on padded. Returns
         {'cls' (B,Q,K) sigmoid, 'mask_coeff' (B,Q,M), 'query_embed' (B,Q,C)}."""
-        query, query_coords = self.query_initialization(encoded, spatial_shapes,
-                                                        n_frames)
-        x_inst = self.decoder_loop(query, query_coords, encoded, spatial_shapes,
-                                   padding_mask, n_frames)
+        query, query_coords, _ = self.query_initialization(encoded, spatial_shapes,
+                                                           n_frames)
+        insts, _ = self.decoder_loop(query, query_coords, encoded,
+                                     spatial_shapes, padding_mask, n_frames)
+        x_inst = insts[-1]
         last = self.decoder_norm(x_inst)
         return {"cls": torch.sigmoid(self.cls_embed(last)),
                 "mask_coeff": torch.tanh(self.mask_embed(last)),

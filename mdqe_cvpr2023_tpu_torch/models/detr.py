@@ -136,11 +136,12 @@ def detr_backbone_features(detr: DeformableDETR, images, image_sizes):
     return [s.permute(0, 2, 3, 1) for s in srcs], masks, pos  # NCHW -> NHWC
 
 
-def detr_encode(detr: DeformableDETR, images, image_sizes):
+def detr_encode(detr: DeformableDETR, images, image_sizes, drop_rate: float = 0.0,
+                generator=None):
     """Backbone + input projections + deformable encoder for a batch of frames.
     Returns (encoded (BT,N,C), mask_flat (BT,N), spatial_shapes)."""
     srcs, masks, pos = detr_backbone_features(detr, images, image_sizes)
-    encoded = detr.transformer_enc(srcs, masks, pos)
+    encoded = detr.transformer_enc(srcs, masks, pos, drop_rate, generator)
     _, mask_flat, _, spatial_shapes = flatten_levels(srcs, masks)
     return encoded, mask_flat, spatial_shapes
 
@@ -151,10 +152,38 @@ def detr_mask_feats(detr: DeformableDETR, encoded, spatial_shapes):
     return detr.transformer_dec.mask_head(maps[2], [maps[1], maps[0]])
 
 
+def detr_apply_backbone(detr: DeformableDETR, images, image_sizes, n_frames: int,
+                        drop_rate: float = 0.0, generator=None):
+    """The training forward, encode + decode (``detr_apply_backbone(...,
+    training=True)`` of the JAX package), fp32. images (BT,Hp,Wp,3)
+    normalized. Returns the decoder's training dict
+    (``TransformerDecoder.forward_train``); dropout at ``drop_rate`` draws
+    from ``generator`` and is off without one."""
+    encoded, mask_flat, spatial_shapes = detr_encode(detr, images, image_sizes,
+                                                     drop_rate, generator)
+    return detr.transformer_dec.forward_train(encoded.float(), mask_flat,
+                                              spatial_shapes, n_frames, drop_rate,
+                                              generator)
+
+
+# The ResNet stages frozen in training: Detectron2's MODEL.BACKBONE.FREEZE_AT
+# 2, the stem and res2 (``frozen_leaf_mask(params, freeze_at=2)`` of the JAX
+# package). The other leaves that the JAX mask freezes (FrozenBN statistics,
+# the decoder's sampling grid, ``lvl_spatial_scales``) are buffers here and
+# never train.
+FROZEN_STAGES = ("stem", "res2")
+
+
+def is_frozen(name: str) -> bool:
+    """Whether the parameter ``name`` (under ``MDQEModel``) is frozen in
+    training: it lies in one of ``FROZEN_STAGES``."""
+    return any(name.startswith(f"detr.backbone.0.backbone.{s}.") for s in FROZEN_STAGES)
+
+
 class MDQEModel(nn.Module):
     """The model's parameters under their Detectron2 names, initialized from a
     seed as ``detr_init`` does. Built on ``device`` (the card unless the caller
-    passes ``device="cpu"``)."""
+    passes ``device="cpu"``), frozen (no gradients) until ``set_trainable``."""
 
     def __init__(self, cfg: MDQEModelCfg, device=None, seed: int = 0):
         super().__init__()
@@ -168,6 +197,13 @@ class MDQEModel(nn.Module):
     @property
     def device(self) -> torch.device:
         return next(self.parameters()).device
+
+    def set_trainable(self) -> None:
+        """Training form: every parameter takes gradients except the frozen
+        ResNet stages (``is_frozen``). The model stays usable for inference
+        (``inference_vis`` runs under ``torch.inference_mode``)."""
+        for name, p in self.named_parameters():
+            p.requires_grad_(not is_frozen(name))
 
     @torch.no_grad()
     def reset_parameters(self, gen: torch.Generator):

@@ -1,7 +1,8 @@
-"""Deformable transformer encoder, eval path (counterpart of
+"""Deformable transformer encoder (counterpart of
 ``mdqe_cvpr2023_tpu/models/encoder.py``): flattened pyramid levels plus a
 learned level embedding, per-pixel reference boxes (w/h 0.1), n layers of
-spatial MSDeformAttn (Q == N) + FFN, final LayerNorm. Frames are the batch."""
+spatial MSDeformAttn (Q == N) + FFN, final LayerNorm. Frames are the batch.
+Training adds three dropouts per layer (``drop_rate`` with a generator)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -12,7 +13,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..utils.misc import make_reference_points
-from ..utils.nn import LayerNorm
+from ..utils.nn import LayerNorm, dropout
 from .attention import MSDeformAttn, MSDeformAttnCfg
 
 
@@ -63,10 +64,12 @@ class EncoderLayer(nn.Module):
         self.linear2 = nn.Linear(d_ffn, cfg.dim)
         self.norm2 = LayerNorm(cfg.dim)
 
-    def forward(self, x, x_pos, ref_boxes, spatial_shapes, padding_mask):
+    def forward(self, x, x_pos, ref_boxes, spatial_shapes, padding_mask,
+                drop_rate: float = 0.0, generator=None):
         x2 = self.self_attn(x + x_pos, ref_boxes, x, spatial_shapes, padding_mask)
-        x = self.norm1(x + x2)
-        x = self.norm2(x + self.linear2(F.gelu(self.linear1(x))))
+        x = self.norm1(x + dropout(x2, drop_rate, generator))
+        h = dropout(F.gelu(self.linear1(x)), drop_rate, generator)
+        x = self.norm2(x + dropout(self.linear2(h), drop_rate, generator))
         return x
 
 
@@ -88,8 +91,9 @@ class TransformerEncoder(nn.Module):
         self.level_embed = nn.Parameter(torch.zeros(cfg.n_levels, cfg.dim))
         self.encoder = Encoder(cfg)
 
-    def forward(self, srcs, masks, pos):
-        """Eval ``encoder_apply``: per-level lists (BT leading) -> (BT,N,C)."""
+    def forward(self, srcs, masks, pos, drop_rate: float = 0.0, generator=None):
+        """``encoder_apply``: per-level lists (BT leading) -> (BT,N,C). Dropout
+        only with a generator (training)."""
         src, mask, lvl_pos, spatial_shapes = flatten_levels(srcs, masks, pos,
                                                             self.level_embed)
         B = src.shape[0]
@@ -99,5 +103,6 @@ class TransformerEncoder(nn.Module):
         ref_boxes = ref_boxes[None].expand(B, -1, -1)
         x = src
         for layer in self.encoder.layers:
-            x = layer(x, lvl_pos, ref_boxes, spatial_shapes, mask)
+            x = layer(x, lvl_pos, ref_boxes, spatial_shapes, mask, drop_rate,
+                      generator)
         return self.encoder.norm(x)

@@ -78,6 +78,8 @@ def load(name: str) -> ctypes.CDLL:
         for fn in (lib.msda_fwd_f32, lib.msda_fwd_bf16):
             fn.argtypes = [ptr, ptr, ptr, ptr, ptr] + [i32] * 7 + [ptr]
             fn.restype = i32
+        lib.msda_bwd_f32.argtypes = [ptr] * 8 + [i32] * 7 + [ptr]
+        lib.msda_bwd_f32.restype = i32
         lib.msda_error_string.argtypes = [i32]
         lib.msda_error_string.restype = ctypes.c_char_p
     _LOADED[name] = lib

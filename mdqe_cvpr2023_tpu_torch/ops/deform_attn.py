@@ -11,9 +11,13 @@ Contract (that of ``mdqe_cvpr2023_tpu/ops/deform_attn.py``):
 Sampling = grid_sample(bilinear, padding_mode="zeros", align_corners=False):
 pixel coordinate = loc * size - 0.5; a corner outside the level counts zero.
 
-``ms_deform_attn`` sends a CPU tensor to the plain version and a CUDA tensor to
-the kernel; it never falls back. Each call site keeps its own launch count in
-``LAUNCHES``, raised only where the kernel is launched.
+``ms_deform_attn`` sends a CPU tensor to the plain version (autograd
+differentiates it) and a CUDA tensor to ``MSDeformAttnFunction``, whose forward
+launches ``msda_fwd_*`` and whose backward launches ``msda_bwd_f32``; it never
+falls back. Each call site keeps its own forward launch count in ``LAUNCHES``
+and backward launch count in ``BWD_LAUNCHES``, raised only where the kernel is
+launched. ``msda_bwd_f32`` accumulates d(value) with fp32 atomics, so its
+summation order, and its last bits, vary from run to run.
 """
 from __future__ import annotations
 
@@ -25,11 +29,14 @@ import torch
 from . import _build
 
 LAUNCHES = {"encoder": 0, "decoder_box": 0, "decoder_inst": 0}
+BWD_LAUNCHES = {"encoder": 0, "decoder_box": 0, "decoder_inst": 0}
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    """Zero the forward and the backward counts of every site."""
+    for counts in (LAUNCHES, BWD_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 def ms_deform_attn_plain(value, spatial_shapes: Sequence[Tuple[int, int]],
@@ -82,12 +89,8 @@ def _level_meta(spatial_shapes: Tuple[Tuple[int, int], ...], device: str):
     return torch.tensor(rows, dtype=torch.int32, device=device)
 
 
-def ms_deform_attn_cuda(value, spatial_shapes: Sequence[Tuple[int, int]],
-                        sampling_locations, attention_weights,
-                        site: Optional[str] = None):
-    """Launch ``msda_fwd`` on the current stream. ``site`` names the call site
-    whose launch count goes up by one; comparisons pass ``None``."""
-    shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
+def _check_kernel_inputs(value, shapes, sampling_locations, attention_weights):
+    """Raise on what the kernels do not take; returns (B, N, Q, H, D, L, P)."""
     B, N, H, D = value.shape
     if sampling_locations.dim() != 6 or sampling_locations.shape[-1] != 2:
         raise ValueError(f"locations must be (B,Q,H,L,P,2), got "
@@ -112,6 +115,23 @@ def ms_deform_attn_cuda(value, spatial_shapes: Sequence[Tuple[int, int]],
     if sampling_locations.dtype != torch.float32 \
             or attention_weights.dtype != torch.float32:
         raise TypeError("locations and weights must be float32")
+    return B, N, Q, H, D, L, P
+
+
+def _raise_on(lib, fn_name: str, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"{fn_name} launch failed: "
+                           f"{lib.msda_error_string(err).decode()} ({err})")
+
+
+def ms_deform_attn_cuda(value, spatial_shapes: Sequence[Tuple[int, int]],
+                        sampling_locations, attention_weights,
+                        site: Optional[str] = None):
+    """Launch ``msda_fwd`` on the current stream. ``site`` names the call site
+    whose launch count goes up by one; comparisons pass ``None``."""
+    shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
+    B, N, Q, H, D, L, P = _check_kernel_inputs(value, shapes, sampling_locations,
+                                               attention_weights)
     if value.dtype == torch.float32:
         fn_name = "msda_fwd_f32"
     elif value.dtype == torch.bfloat16:
@@ -127,18 +147,74 @@ def ms_deform_attn_cuda(value, spatial_shapes: Sequence[Tuple[int, int]],
                                 sampling_locations.data_ptr(),
                                 attention_weights.data_ptr(), out.data_ptr(),
                                 B, N, Q, H, D, L, P, stream)
-    if err != 0:
-        raise RuntimeError(f"{fn_name} launch failed: "
-                           f"{lib.msda_error_string(err).decode()} ({err})")
+    _raise_on(lib, fn_name, err)
     if site is not None:
         LAUNCHES[site] += 1
     return out
 
 
+def ms_deform_attn_bwd_cuda(value, spatial_shapes: Sequence[Tuple[int, int]],
+                            sampling_locations, attention_weights, grad_output,
+                            site: Optional[str] = None):
+    """Launch ``msda_bwd_f32`` on the current stream: the gradients of the
+    forward's output, given ``grad_output`` (B, Q, H*D), with respect to value,
+    locations and weights. ``site`` as in ``ms_deform_attn_cuda``, counted in
+    ``BWD_LAUNCHES``."""
+    shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
+    B, N, Q, H, D, L, P = _check_kernel_inputs(value, shapes, sampling_locations,
+                                               attention_weights)
+    if value.dtype != torch.float32:
+        raise TypeError(f"the backward kernel takes float32 value, got {value.dtype}: "
+                        "mixed-precision (AMP) training is not ported")
+    if tuple(grad_output.shape) != (B, Q, H * D) or grad_output.dtype != torch.float32:
+        raise ValueError(f"grad_output must be float32 {(B, Q, H * D)}, got "
+                         f"{grad_output.dtype} {tuple(grad_output.shape)}")
+    if grad_output.device != value.device or not grad_output.is_contiguous():
+        raise ValueError("grad_output must be contiguous on the value's device")
+
+    lib = _build.load("ms_deform_attn")
+    meta = _level_meta(shapes, str(value.device))
+    grad_value = torch.zeros_like(value)
+    grad_loc = torch.empty_like(sampling_locations)
+    grad_attw = torch.empty_like(attention_weights)
+    stream = torch.cuda.current_stream(value.device).cuda_stream
+    err = lib.msda_bwd_f32(value.data_ptr(), meta.data_ptr(),
+                           sampling_locations.data_ptr(),
+                           attention_weights.data_ptr(), grad_output.data_ptr(),
+                           grad_value.data_ptr(), grad_loc.data_ptr(),
+                           grad_attw.data_ptr(), B, N, Q, H, D, L, P, stream)
+    _raise_on(lib, "msda_bwd_f32", err)
+    if site is not None:
+        BWD_LAUNCHES[site] += 1
+    return grad_value, grad_loc, grad_attw
+
+
+class MSDeformAttnFunction(torch.autograd.Function):
+    """The CUDA kernels as one differentiable op: forward ``msda_fwd_*``,
+    backward ``msda_bwd_f32``."""
+
+    @staticmethod
+    def forward(ctx, value, spatial_shapes, sampling_locations, attention_weights,
+                site):
+        ctx.spatial_shapes = spatial_shapes
+        ctx.site = site
+        ctx.save_for_backward(value, sampling_locations, attention_weights)
+        return ms_deform_attn_cuda(value, spatial_shapes, sampling_locations,
+                                   attention_weights, site)
+
+    @staticmethod
+    def backward(ctx, grad_output):
+        value, loc, attw = ctx.saved_tensors
+        grads = ms_deform_attn_bwd_cuda(value, ctx.spatial_shapes, loc, attw,
+                                        grad_output.contiguous(), ctx.site)
+        return grads[0], None, grads[1], grads[2], None
+
+
 def ms_deform_attn(value, spatial_shapes: Sequence[Tuple[int, int]],
                    sampling_locations, attention_weights, site: str):
     """Deformable attention for the call site ``site`` (a key of LAUNCHES):
-    the plain version for CPU tensors, the CUDA kernel for CUDA tensors."""
+    the plain version for CPU tensors, the CUDA kernels (forward, and backward
+    under autograd) for CUDA tensors."""
     if site not in LAUNCHES:
         raise KeyError(site)
     if value.device.type == "cpu":
@@ -146,5 +222,6 @@ def ms_deform_attn(value, spatial_shapes: Sequence[Tuple[int, int]],
                                     attention_weights)
     if value.device.type != "cuda":
         raise ValueError(f"no deformable-attention path for {value.device}")
-    return ms_deform_attn_cuda(value, spatial_shapes, sampling_locations,
-                               attention_weights, site)
+    shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
+    return MSDeformAttnFunction.apply(value, shapes, sampling_locations,
+                                      attention_weights, site)

@@ -8,7 +8,8 @@ reference gates and for the crowded tracker (gates off, the tracker fills to
 120 instances). For each it prints the wall time and clips/s, the host
 seconds per stage (each stage ending in a synchronize), and from one run under
 ``torch.profiler``: the device-busy share (union of kernel intervals over the
-run's wall time) and the kernels by total device time.
+run's wall time) and the kernels by total device time (user annotations left
+out).
 
 Usage: python3 -m mdqe_cvpr2023_tpu_torch.tools.profile_vis [--runs N]
 """
@@ -36,10 +37,18 @@ CROWD = dataclasses.replace(INF, apply_cls_thres=0.0, dedup_sim=2.0,
                             suppress_siou=2.0, suppress_ctt=2.0)
 
 
-def _busy_and_kernels(prof, wall_s):
+def device_events(prof):
+    """The profiled run's device activity (kernels, copies, sets), without the
+    user-annotation ranges (``record_function``, ``Optimizer.step``) that the
+    profiler also puts on the device timeline."""
     cuda = torch.autograd.DeviceType.CUDA
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == cuda)
+    return [e for e in prof.events() if e.device_type == cuda
+            and not getattr(e, "is_user_annotation", False)]
+
+
+def _busy_and_kernels(prof, wall_s):
+    events = device_events(prof)
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
     if not spans:
         return None, []
     busy, cur_s, cur_e = 0.0, *spans[0]
@@ -51,11 +60,10 @@ def _busy_and_kernels(prof, wall_s):
             cur_e = max(cur_e, e)
     busy += cur_e - cur_s
     per_kernel = {}
-    for e in prof.events():
-        if e.device_type == cuda:
-            k = per_kernel.setdefault(e.name, [0.0, 0])
-            k[0] += e.time_range.end - e.time_range.start
-            k[1] += 1
+    for e in events:
+        k = per_kernel.setdefault(e.name, [0.0, 0])
+        k[0] += e.time_range.end - e.time_range.start
+        k[1] += 1
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:12]
     return busy / 1e6 / wall_s, [(n[:90], round(t / 1e3, 3), c) for n, (t, c) in top]
 

@@ -83,31 +83,42 @@ def make_reference_points(spatial_shape, device) -> torch.Tensor:
     return torch.stack([xx.reshape(-1), yy.reshape(-1)], dim=-1)
 
 
-def grid_sample(img, grid, padding_mode: str = "zeros"):
-    """Bilinear grid_sample with align_corners=False, as the JAX package
-    computes it: corner indices are clamped and the corner weights kept
-    (``border``), or out-of-range corners weigh zero (``zeros``).
+def grid_sample(img, grid, padding_mode: str = "zeros", mode: str = "bilinear"):
+    """grid_sample with align_corners=False, as the JAX package computes it.
+    Bilinear: corner indices are clamped and the corner weights kept
+    (``border``), or out-of-range corners weigh zero (``zeros``). Nearest (with
+    ``border`` only): the pixel at round-half-to-even of the coordinate,
+    clamped.
 
     img (B, H, W, C) channel-last; grid (B, Hg, Wg, 2) in [-1, 1], (x, y)
     -> (B, Hg, Wg, C)."""
     if padding_mode not in ("zeros", "border"):
         raise ValueError(padding_mode)
+    if mode not in ("bilinear", "nearest") or (mode, padding_mode) == ("nearest", "zeros"):
+        raise ValueError(f"mode {mode} with padding {padding_mode}")
     B, H, W, C = img.shape
     gx = (grid[..., 0] + 1.0) * (W * 0.5) - 0.5
     gy = (grid[..., 1] + 1.0) * (H * 0.5) - 0.5
+    flat = img.reshape(B, H * W, C)
+
+    def gather(ix, iy):
+        lin = (iy.clamp(0, H - 1) * W + ix.clamp(0, W - 1)).reshape(B, -1, 1)
+        vals = torch.gather(flat, 1, lin.expand(-1, -1, C))
+        return vals.reshape(B, *grid.shape[1:3], C)
+
+    def inside(ix, iy):
+        return ((ix >= 0) & (ix < W) & (iy >= 0) & (iy < H)).to(img.dtype)
+
+    if mode == "nearest":
+        return gather(torch.round(gx).long(), torch.round(gy).long())
+
     x0f, y0f = torch.floor(gx), torch.floor(gy)
     fx, fy = gx - x0f, gy - y0f
     x0, y0 = x0f.long(), y0f.long()
-    flat = img.reshape(B, H * W, C)
 
     def corner(ix, iy, w):
-        if padding_mode == "border":
-            wm = w
-        else:
-            wm = w * ((ix >= 0) & (ix < W) & (iy >= 0) & (iy < H)).to(img.dtype)
-        lin = (iy.clamp(0, H - 1) * W + ix.clamp(0, W - 1)).reshape(B, -1, 1)
-        vals = torch.gather(flat, 1, lin.expand(-1, -1, C))
-        return vals.reshape(B, *grid.shape[1:3], C) * wm[..., None]
+        wm = w if padding_mode == "border" else w * inside(ix, iy)
+        return gather(ix, iy) * wm[..., None]
 
     return (corner(x0, y0, (1 - fx) * (1 - fy))
             + corner(x0 + 1, y0, fx * (1 - fy))

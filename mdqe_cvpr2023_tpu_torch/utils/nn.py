@@ -87,6 +87,17 @@ def position_embedding_sine(not_mask, num_pos_feats: int,
     return torch.cat([pos_y, pos_x], dim=-1)
 
 
+def dropout(x, rate: float, generator=None):
+    """Inverted dropout drawing from ``generator`` (a ``torch.Generator`` on
+    x's device): entries kept with probability 1 - rate and scaled by
+    1 / (1 - rate). Identity when the rate is 0 or no generator is given
+    (eval), as the JAX package's ``dropout`` is without a key."""
+    if generator is None or rate <= 0.0:
+        return x
+    keep = torch.empty_like(x).bernoulli_(1.0 - rate, generator=generator)
+    return x * keep / (1.0 - rate)
+
+
 # ---------------------------------------------------------------------------
 # parameter holders (state-dict names follow Detectron2 / torch.nn)
 # ---------------------------------------------------------------------------

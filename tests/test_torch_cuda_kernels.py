@@ -1,5 +1,6 @@
-"""The port's CUDA deformable-attention kernel against its plain PyTorch
-version, on the card.
+"""The port's CUDA deformable-attention kernels (forward, and backward against
+autograd of the plain version) against their plain PyTorch version, on the
+card.
 
 These tests need an NVIDIA card with nvcc (the kernel has no CPU or interpret
 mode): they carry the ``cuda`` marker and skip where no card is present. They
@@ -82,6 +83,7 @@ def test_dispatcher_counts_only_kernel_launches(cuda_device):
     da.ms_deform_attn_cuda(args[0], shapes, args[1], args[2])
     torch.cuda.synchronize()
     assert da.LAUNCHES == {"encoder": 0, "decoder_box": 1, "decoder_inst": 0}
+    assert da.BWD_LAUNCHES == {"encoder": 0, "decoder_box": 0, "decoder_inst": 0}
 
 
 def test_wrapper_rejects_bad_input(cuda_device):
@@ -96,3 +98,64 @@ def test_wrapper_rejects_bad_input(cuda_device):
         da.ms_deform_attn_cuda(v, ((6, 7),), lo, aw)
     with pytest.raises(ValueError):
         da.ms_deform_attn_cuda(v, shapes, lo.transpose(1, 2), aw)
+
+
+# Backward: (B, Q, H, D, P, shapes, loc mode). Locations up to well outside
+# the levels, so zero padding and the far clamp are exercised. Tolerances:
+# d(loc) and d(weights) are warp sums in another order than autograd's (1e-4
+# of the largest entry); d(value) sums with fp32 atomics in an order that
+# changes from run to run (the same 1e-4).
+BWD_CASES = {
+    "odd_d16_q70": (2, 70, 2, 16, 4, ((10, 6), (3, 5), (7, 11)), "uniform"),
+    "odd_d48": (2, 45, 2, 48, 2, ((9, 4), (2, 11)), "uniform"),
+    "far_out": (1, 33, 3, 32, 3, ((9, 13), (5, 4)), "far"),
+    "encoder_like": (2, 639, 4, 32, 4, ((24, 20), (12, 10), (6, 5), (3, 3)), "local"),
+    "temporal": (2, 40, 4, 32, 4, ((12, 20),) * 4, "uniform"),
+}
+
+
+def _grads_of(fn, value, loc, attw, gout):
+    leaves = [t.detach().clone().requires_grad_(True) for t in (value, loc, attw)]
+    out = fn(*leaves)
+    return torch.autograd.grad(out, leaves, gout)
+
+
+@pytest.mark.parametrize("case", sorted(BWD_CASES))
+def test_backward_kernel_matches_plain_autograd(cuda_device, case):
+    B, Q, H, D, P, shapes, mode = BWD_CASES[case]
+    if mode == "far":
+        value, _, attw = _inputs(B, Q, H, D, P, shapes, "uniform", seed=1)
+        loc = np.random.default_rng(2).uniform(
+            -1.5, 2.5, (B, Q, H, len(shapes), P, 2)).astype(np.float32)
+    else:
+        value, loc, attw = _inputs(B, Q, H, D, P, shapes, mode, seed=1)
+    gout = np.random.default_rng(3).standard_normal((B, Q, H * D)).astype(np.float32)
+    v, lo, aw, go = (torch.from_numpy(a).to(cuda_device) for a in (value, loc, attw, gout))
+    da.reset_launches()
+    got = _grads_of(lambda *a: da.ms_deform_attn(a[0], shapes, a[1], a[2], "encoder"),
+                    v, lo, aw, go)
+    want = _grads_of(lambda *a: da.ms_deform_attn_plain(a[0], shapes, a[1], a[2]),
+                     v, lo, aw, go)
+    torch.cuda.synchronize()
+    assert da.LAUNCHES["encoder"] == 1 and da.BWD_LAUNCHES["encoder"] == 1
+    for name, g, w in zip(("value", "loc", "attw"), got, want):
+        assert g.shape == w.shape and g.dtype == torch.float32, name
+        tol = 1e-4 * max(float(w.abs().max()), 1.0)
+        torch.testing.assert_close(g, w, rtol=0, atol=tol, msg=name)
+
+
+def test_backward_takes_noncontiguous_grad_and_rejects_bf16(cuda_device):
+    shapes = ((6, 8), (3, 4))
+    value, loc, attw = _inputs(1, 10, 2, 32, 2, shapes, "uniform")
+    v, lo, aw = (torch.from_numpy(a).to(cuda_device) for a in (value, loc, attw))
+    gout = torch.randn(64, 10, device=cuda_device).t()  # (10, 64), strided
+    got = _grads_of(lambda *a: da.ms_deform_attn(a[0], shapes, a[1], a[2],
+                                                 "decoder_box"),
+                    v, lo, aw, gout[None])
+    want = _grads_of(lambda *a: da.ms_deform_attn_plain(a[0], shapes, a[1], a[2]),
+                     v, lo, aw, gout[None])
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-4)
+    with pytest.raises(TypeError, match="AMP"):
+        da.ms_deform_attn_bwd_cuda(v.bfloat16(), shapes, lo, aw,
+                                   torch.zeros(1, 10, 64, device=cuda_device))
