@@ -3,48 +3,70 @@
 
 Phases (each exits non-zero on failure; none is caught and continued):
   1. device: the card's name and power limit;
-  2. build: compile the CUDA kernels from the checkout with nvcc (sm_90a) and
+  2. build: compile the CUDA kernels from the checkout with nvcc (sm_90a), one
+     nvcc per source started together (ms_deform_attn.cu, tc_kdepth.cu), and
      print ptxas's register / shared-memory / spill report;
   3. the forward kernel against its plain PyTorch version at every call shape
      of the inference path (encoder, decoder box level, decoder temporal) and
      at odd shapes; the backward kernel against autograd of the plain version,
      and the forward kernel against the plain forward, at every call shape of
      the training step; the backward also at odd shapes (D=16, D=48,
-     non-square levels, locations far outside);
-  4. kernel timing (CUDA events), forward (inference and training shapes)
-     and backward (training shapes), beside the plain version, the
+     non-square levels, locations far outside); every block size of the
+     forward kernel (both value types) at the tuning tool's four level
+     problems and the COCO encoder's shape; the gather probe against the
+     tool's oracle at every problem it times; tc_kdepth against its plain
+     version at every (K, N) of the depth sweep;
+  4. kernel timing (CUDA events), forward (inference, training and COCO
+     shapes) and backward (training shapes), beside the plain version, the
      grid_sample composition (a yardstick the port never calls) and the least
      time the card could take for the same work;
   5. windowed VIS inference (inference_vis) at full width (R50, hidden 256,
      6+6 layers, 196 queries, 4-frame clips, 30-frame windows, 360x640) on a
      36-frame synthetic video with random weights from a seed: launch counts
      per call site, output checks, and on a small input the card's output
-     against the port's CPU path (plain versions);
+     against the port's CPU path (plain versions); then COCO image inference
+     (inference_image) at full width (R50 COCO, 800x1216, fp32): s/image,
+     peak memory, launches per call site, output checks, and a small image
+     against the CPU path under both multi_cls_on branches; then the COCO
+     post-processing at 196 queries x 80 classes on object-like decoder
+     outputs (distinct masks, boxes overlapping in part) against the CPU
+     path, both branches;
   6. the training step at full width (2 clips x 4 frames of 512x800, 20
      instance slots, 25 classes, fp32) on a synthetic batch: s/step, peak
      memory, forward and backward launches per call site, finite losses,
      frozen parameters and buffers unchanged, a lower loss after a few steps;
      then a tiny training step on the card against the port's CPU path (loss
      dict, gradients, parameters after one step);
-  7. the kernel list as one JSON line; the card line; the result line.
+  7. the kernel tools' sweeps (block sizes, gather probe, tensor-core depth),
+     each problem with the launch counts set to 0 before it and read after
+     it;
+  8. the kernel list as one JSON line; the card line; the result line.
 
 Usage: python3 chip_smoke.py   (needs one CUDA card; runs from the checkout)
 """
 import dataclasses
 import json
-import os
 import subprocess
 import sys
 import time
 
 import numpy as np
 
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
-FP32_FLOP_PER_S = 67e12     # H100 SXM fp32 outside the tensor cores
+try:
+    import torch
+    from mdqe_cvpr2023_tpu_torch.tools import measure
+except ModuleNotFoundError as exc:
+    print(f"chip_smoke: FAIL: {exc}: run this script from a checkout of the repository, "
+          "with PyTorch installed", file=sys.stderr, flush=True)
+    sys.exit(1)
+
 ENC_SHAPES = ((48, 80), (24, 40), (12, 20), (6, 10))  # 384x640 padded frames
 TRAIN_SHAPES = ((64, 100), (32, 50), (16, 25), (8, 13))  # 512x800 padded frames
+COCO_SHAPES = ((100, 152), (50, 76), (25, 38), (13, 19))  # 800x1216 padded image
+COCO_N = sum(h * w for h, w in COCO_SHAPES)               # 20197 encoder tokens
 PALLAS = "mdqe_cvpr2023_tpu/ops/deform_attn_pallas.py"
 SOURCE = "mdqe_cvpr2023_tpu_torch/ops/csrc/ms_deform_attn.cu"
+TC_SOURCE = "mdqe_cvpr2023_tpu_torch/ops/csrc/tc_kdepth.cu"
 
 
 def fail(msg):
@@ -82,96 +104,12 @@ def make_inputs(torch, B, Q, H, D, P, shapes, loc_mode, vdtype, seed):
             torch.from_numpy(attw.reshape(B, Q, H, L, P)).to(dev))
 
 
-def grid_sample_msda(torch, value, shapes, loc, attw):
-    """The reference's PyTorch oracle form: one F.grid_sample per level on
-    (B*H, D, h, w), then the weighted sum. Timed as a yardstick only."""
-    F = torch.nn.functional
-    B, N, H, D = value.shape
-    _, Q, _, L, P, _ = loc.shape
-    value = value.float()
-    grids = 2 * loc - 1
-    outs, start = [], 0
-    for l, (h, w) in enumerate(shapes):
-        v = value[:, start:start + h * w].flatten(2).transpose(1, 2).reshape(B * H, D, h, w)
-        start += h * w
-        g = grids[:, :, :, l].transpose(1, 2).flatten(0, 1)           # (B*H, Q, P, 2)
-        outs.append(F.grid_sample(v, g, mode="bilinear", padding_mode="zeros",
-                                  align_corners=False))                # (B*H, D, Q, P)
-    a = attw.transpose(1, 2).reshape(B * H, 1, Q, L * P)
-    out = (torch.stack(outs, -2).flatten(-2) * a).sum(-1)
-    return out.view(B, H * D, Q).transpose(1, 2)
-
-
-def taps_of(torch, value, shapes, loc):
-    """(distinct value rows the in-range taps touch, number of in-range taps)."""
-    B, N, H, D = value.shape
-    b = torch.arange(B, device=loc.device).view(B, 1, 1, 1)
-    h = torch.arange(H, device=loc.device).view(1, 1, H, 1)
-    rows, taps, start = [], 0, 0
-    for l, (hl, wl) in enumerate(shapes):
-        x = loc[:, :, :, l, :, 0] * wl - 0.5
-        y = loc[:, :, :, l, :, 1] * hl - 0.5
-        x0, y0 = torch.floor(x).long(), torch.floor(y).long()
-        for cx, cy in ((x0, y0), (x0 + 1, y0), (x0, y0 + 1), (x0 + 1, y0 + 1)):
-            ok = (cx >= 0) & (cx < wl) & (cy >= 0) & (cy < hl)
-            taps += int(ok.sum())
-            rows.append((((b * N + start + cy * wl + cx) * H + h)[ok]).reshape(-1))
-        start += hl * wl
-    return int(torch.unique(torch.cat(rows)).numel()), taps
-
-
-def bound_of(torch, value, shapes, loc, attw):
-    """Least time for this call on an H100: the larger of (bytes it must move:
-    the value rows its in-range taps touch, locations, weights, output) over
-    HBM bandwidth and (2*D flops per in-range tap) over fp32 peak."""
-    B, N, H, D = value.shape
-    Q = loc.shape[1]
-    touched, taps = taps_of(torch, value, shapes, loc)
-    nbytes = (touched * D * value.element_size() + loc.numel() * 4
-              + attw.numel() * 4 + B * Q * H * D * 4)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = 2.0 * D * taps / FP32_FLOP_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes
-
-
-def bwd_bound_of(torch, value, shapes, loc, attw):
-    """Least time for the backward on an H100: the larger of (bytes: the value
-    rows the in-range taps touch, read; d(value) written once in full;
-    locations, weights and the output gradient read; d(locations) and
-    d(weights) written) over HBM bandwidth and (8*D flops per in-range tap:
-    the sample, its two derivatives, the scattered product) over fp32 peak.
-    Also returns the bytes and the number of fp32 atomics (one per channel
-    and in-range tap), which may be what limits the kernel."""
-    B, N, H, D = value.shape
-    Q = loc.shape[1]
-    touched, taps = taps_of(torch, value, shapes, loc)
-    nbytes = (touched * D * 4 + value.numel() * 4 + 2 * loc.numel() * 4
-              + 2 * attw.numel() * 4 + B * Q * H * D * 4)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = 8.0 * D * taps / FP32_FLOP_PER_S * 1e3
-    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
-            nbytes, taps * D)
-
-
 def grads_of(torch, fn, value, loc, attw, gout, retain=False):
     """Leaves (value, loc, attw) with gradients, fn's output on them, and the
     gradients of <output, gout>."""
     leaves = [t.detach().clone().requires_grad_(True) for t in (value, loc, attw)]
     out = fn(*leaves)
     return leaves, out, torch.autograd.grad(out, leaves, gout, retain_graph=retain)
-
-
-def time_ms(torch, fn, iters, warmup=2):
-    for _ in range(warmup):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 # backward checks: site, B, Q, H, D, P, shapes, loc mode (the training step's
@@ -239,20 +177,20 @@ def time_backward(torch, da):
     timings, fwd_timings = {}, {}
     for k, (site, B, Q, H, D, P, shapes, mode) in enumerate(BWD_CHECKS[:3]):
         v, lo, aw, gout = bwd_inputs(torch, B, Q, H, D, P, shapes, mode, seed=300 + k)
-        ms = time_ms(torch, lambda: da.ms_deform_attn_bwd_cuda(v, shapes, lo, aw, gout), 20)
+        ms = measure.time_ms(lambda: da.ms_deform_attn_bwd_cuda(v, shapes, lo, aw, gout), 20)
         leaves, out, _ = grads_of(
             torch, lambda a, b, c: da.ms_deform_attn_plain(a, shapes, b, c),
             v, lo, aw, gout, retain=True)
-        plain_ms = time_ms(torch, lambda: torch.autograd.grad(out, leaves, gout,
+        plain_ms = measure.time_ms(lambda: torch.autograd.grad(out, leaves, gout,
                                                                retain_graph=True), 3)
         del out
         leaves, out, _ = grads_of(
-            torch, lambda a, b, c: grid_sample_msda(torch, a, shapes, b, c),
+            torch, lambda a, b, c: measure.grid_sample_msda(a, shapes, b, c),
             v, lo, aw, gout, retain=True)
-        lib_ms = time_ms(torch, lambda: torch.autograd.grad(out, leaves, gout,
+        lib_ms = measure.time_ms(lambda: torch.autograd.grad(out, leaves, gout,
                                                              retain_graph=True), 3)
         del out, leaves
-        bound_ms, bound_by, nbytes, atomics = bwd_bound_of(torch, v, shapes, lo, aw)
+        bound_ms, bound_by, nbytes, atomics = measure.msda_bwd_bound(v, shapes, lo, aw)
         timings[site] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                              bound_ms=bound_ms, bound_by=bound_by)
         print(f"bwd {site:12s} B={B} Q={Q} kernel {ms:.4f} ms | plain backward "
@@ -260,10 +198,10 @@ def time_backward(torch, da):
               f"{bound_ms * 1e3:.1f} us by {bound_by} ({nbytes / 1e6:.1f} MB) | "
               f"{atomics / 1e6:.2f} M fp32 atomics | {bound_ms / ms:.1%} of bound",
               flush=True)
-        f_ms = time_ms(torch, lambda: da.ms_deform_attn_cuda(v, shapes, lo, aw), 20)
-        f_plain = time_ms(torch, lambda: da.ms_deform_attn_plain(v, shapes, lo, aw), 3)
-        f_lib = time_ms(torch, lambda: grid_sample_msda(torch, v, shapes, lo, aw), 3)
-        f_bound, f_by, f_bytes = bound_of(torch, v, shapes, lo, aw)
+        f_ms = measure.time_ms(lambda: da.ms_deform_attn_cuda(v, shapes, lo, aw), 20)
+        f_plain = measure.time_ms(lambda: da.ms_deform_attn_plain(v, shapes, lo, aw), 3)
+        f_lib = measure.time_ms(lambda: measure.grid_sample_msda(v, shapes, lo, aw), 3)
+        f_bound, f_by, f_bytes = measure.msda_bound(v, shapes, lo, aw)
         fwd_timings[site] = dict(ms=f_ms, plain_ms=f_plain, library_ms=f_lib,
                                  bound_ms=f_bound, bound_by=f_by)
         print(f"fwd {site:12s} B={B} Q={Q} float32  kernel {f_ms:.4f} ms | plain "
@@ -432,18 +370,398 @@ def check_outputs(out, n_frames, hw, num_classes):
             fail(f"mask of shape {m.shape} {m.dtype}, want {(n_frames,) + tuple(hw)} bool")
 
 
+def sig(x):
+    """x to 6 significant digits (the kernels line stays short)."""
+    return None if x is None else float(f"{x:.6g}")
+
+
+def kernel_entry(name, source, replaces, launches, err, t):
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": int(launches), "max_abs_err": sig(err), "ms": sig(t["ms"]),
+            "plain_ms": sig(t["plain_ms"]), "bound_ms": sig(t["bound_ms"]),
+            "bound_by": t["bound_by"], "library_ms": sig(t["library_ms"])}
+
+
+def check_block_variants(da, tdk):
+    """Every block size x value type against the plain version, on the tuning
+    tool's inputs at each of its four levels (B*H = 80, Q = 5120, one level,
+    weights in [0, 20); the inputs its sweep times) and at the COCO encoder's
+    shape (B = 1, Q = N = 20197). Tolerance 1e-5 of the largest |out| (at
+    least 1e-4): both read the same numbers and differ only in summation
+    order. Returns max |err| per (problem, variant key); the tuning problems
+    are named by their level, "48x80" ..."""
+    problems = [(f"{h}x{w}", ((h, w),), tdk.level_inputs(h, w, seed=li))
+                for li, (h, w) in enumerate(tdk.LEVELS)]
+    problems.append(("coco encoder", COCO_SHAPES,
+                     make_inputs(torch, 1, COCO_N, 8, 32, 4, COCO_SHAPES, "local",
+                                 torch.float32, seed=400)))
+    max_err = {}
+    for name, shapes, (v, lo, aw) in problems:
+        for vdt in (torch.bfloat16, torch.float32):
+            errs, scale = tdk.check_variants(v.to(vdt), shapes, lo, aw)
+            tol = max(1e-4, 1e-5 * scale)
+            print(f"block sizes {name:14s} {str(vdt)[6:]:8s} max|err| "
+                  f"{json.dumps({t: float(f'{e:.3g}') for t, e in errs.items()})} "
+                  f"(tol {tol:.1e})", flush=True)
+            for t, e in errs.items():
+                max_err[name, da.block_variant(vdt, t)] = e
+                if not e <= tol:
+                    fail(f"block size {t} ({vdt}) disagrees with the plain version at {name}")
+        del v, lo, aw
+    return max_err
+
+
+def check_probe(pbp):
+    """The gather probe's kernel against the tool's oracle (fp32) and the
+    plain version (bf16) at every problem the probe times (both spreads, 512
+    and 409600 queries): max |err| <= 1e-5 of the largest |out|. Returns max
+    |err| per (spread, size name)."""
+    res = pbp.check()
+    print(f"gather probe max|err|: {json.dumps(res)} (tol 1e-5 of scale)", flush=True)
+    errs = {}
+    for kind, by_size in res.items():
+        for name, r in by_size.items():
+            errs[kind, name] = max(r["f32_vs_oracle"], r["bf16_vs_plain"])
+            if not errs[kind, name] <= 1e-5 * r["scale"]:
+                fail(f"the gather probe disagrees at the {kind} spread, {name}: {r}")
+    return errs
+
+
+def check_tc(pmk):
+    """tc_kdepth against tc_kdepth_plain at every (K, N) of the sweep, on the
+    tool's operands and on a random left operand: max |err| <= 1e-4 of the
+    largest |out| (exact bf16 products; only the order of the sums differs).
+    Returns max |err| per shape key."""
+    from mdqe_cvpr2023_tpu_torch.ops import tc_kdepth as tc
+    errs, rel = {}, {}
+    for N in pmk.NS:
+        for K in pmk.KS:
+            key = tc.shape_key(K, N)
+            for random_lhs in (False, True):
+                err, scale = pmk.check(K, N, random_lhs=random_lhs)
+                errs[key] = max(errs.get(key, 0.0), err)
+                rel[key] = max(rel.get(key, 0.0), err / scale)
+                if not err <= 1e-4 * scale:
+                    fail(f"tc_kdepth disagrees with its plain version at K={K} N={N}: "
+                         f"{err:.2e} of {scale:.2e}")
+    print(f"tc_kdepth max|err| / max|out| per shape: "
+          f"{json.dumps({k: float(f'{e:.3g}') for k, e in rel.items()})} (tol 1e-4)",
+          flush=True)
+    return errs
+
+
+def coco_site_inputs(site):
+    """The forward kernel's inputs at a COCO call site: list of (shapes, v,
+    loc, weights); the temporal site has one per pyramid level (one frame,
+    one attention level)."""
+    if site == "encoder":
+        return [(COCO_SHAPES, *make_inputs(torch, 1, COCO_N, 8, 32, 4, COCO_SHAPES, "local",
+                                           torch.float32, seed=410))]
+    if site == "decoder_box":
+        return [(COCO_SHAPES, *make_inputs(torch, 1, 196, 8, 32, 4, COCO_SHAPES, "uniform",
+                                           torch.float32, seed=411))]
+    return [(((h, w),), *make_inputs(torch, 1, 196, 8, 32, 4, ((h, w),), "uniform",
+                                     torch.float32, seed=412 + k))
+            for k, (h, w) in enumerate(COCO_SHAPES)]
+
+
+def coco_kernel_sites(da):
+    """The forward kernel at the COCO sites: max |err| against the plain
+    version (tolerance 1e-4, as at the inference shapes) and the timing per
+    launch beside the plain version, the grid_sample composition and the
+    bound; the temporal site averages its four level shapes (one launch each
+    per layer)."""
+    errs, timings = {}, {}
+    for site in ("encoder", "decoder_box", "decoder_inst"):
+        rows = []
+        for shapes, v, lo, aw in coco_site_inputs(site):
+            got = da.ms_deform_attn_cuda(v, shapes, lo, aw)
+            want = da.ms_deform_attn_plain(v, shapes, lo, aw)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            errs[site] = max(errs.get(site, 0.0), err)
+            if not (err <= 1e-4 and bool(torch.isfinite(got).all())):
+                fail(f"kernel disagrees with its plain version at the COCO {site}: {err:.2e}")
+            ms = measure.time_ms(lambda: da.ms_deform_attn_cuda(v, shapes, lo, aw), 50)
+            dev_ms = measure.graph_ms(lambda: da.ms_deform_attn_cuda(v, shapes, lo, aw), 50)
+            plain_ms = measure.time_ms(lambda: da.ms_deform_attn_plain(v, shapes, lo, aw), 3)
+            lib_ms = measure.time_ms(lambda: measure.grid_sample_msda(v, shapes, lo, aw), 3)
+            bound_ms, bound_by, _ = measure.msda_bound(v, shapes, lo, aw)
+            rows.append((ms, plain_ms, lib_ms, bound_ms, bound_by, dev_ms))
+            del got, want, v, lo, aw
+        n = len(rows)
+        timings[site] = dict(ms=sum(r[0] for r in rows) / n,
+                             plain_ms=sum(r[1] for r in rows) / n,
+                             library_ms=sum(r[2] for r in rows) / n,
+                             bound_ms=sum(r[3] for r in rows) / n, bound_by=rows[0][4],
+                             device_ms=sum(r[5] for r in rows) / n)
+        t = timings[site]
+        print(f"coco {site:12s} max|err| {errs[site]:.2e} (tol 1e-4) | kernel "
+              f"{t['ms']:.4f} ms (graph replay {t['device_ms']:.4f} ms) | plain "
+              f"{t['plain_ms']:.3f} ms | grid_sample form "
+              f"{t['library_ms']:.3f} ms | bound {t['bound_ms'] * 1e3:.1f} us by "
+              f"{t['bound_by']} | {t['bound_ms'] / t['ms']:.1%} of bound"
+              + (" (mean of the four level shapes)" if n > 1 else ""), flush=True)
+    return errs, timings
+
+
+def coco_full_width(da, card):
+    """COCO image inference at full width (R50 COCO, random weights from seed
+    0, the class head's bias zeroed so that scores pass the 0.05 threshold
+    and the 100-detection slab fills, as a trained model's would): one
+    800x1200 image padded to 800x1216, original size 480x720; a warm-up
+    image, then 5 timed ones, then one with stage timers. Returns the
+    launches of the timed images."""
+    from mdqe_cvpr2023_tpu_torch import configs
+    from mdqe_cvpr2023_tpu_torch.models import meta
+    from mdqe_cvpr2023_tpu_torch.models.detr import MDQEModel
+    cfg, inf = configs.R50_COCO, configs.R50_COCO_INF
+    ori = (480, 720)
+    size = configs.coco_test_size(*ori)
+    t0 = time.perf_counter()
+    model = MDQEModel(cfg, device="cuda", seed=0)
+    with torch.no_grad():
+        model.detr.transformer_dec.cls_embed.layers[-1].bias.zero_()
+    img = np.random.default_rng(0).integers(0, 255, (1,) + size + (3,)).astype(np.uint8)
+    frames, _ = meta.preprocess_frames(img)
+    print(f"COCO model built in {time.perf_counter() - t0:.1f} s; image {size} padded to "
+          f"{frames.shape[1:3]}, original size {ori}", flush=True)
+    t0 = time.perf_counter()
+    meta.inference_image(model, inf, frames, size, ori)
+    torch.cuda.synchronize()
+    print(f"warm-up image {time.perf_counter() - t0:.3f} s", flush=True)
+    n_images = 5
+    torch.cuda.reset_peak_memory_stats()
+    da.reset_launches()
+    walls = []
+    for _ in range(n_images):
+        t0 = time.perf_counter()
+        out = meta.inference_image(model, inf, frames, size, ori)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    launches = dict(da.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    s_img = sum(walls) / n_images
+    n = len(out["scores"])
+    timers = {}
+    meta.inference_image(model, inf, frames, size, ori, timers=timers)
+    print(f"COCO inference: {', '.join(f'{w:.4f}' for w in walls)} s -> {s_img:.4f} s/image, "
+          f"{1 / s_img:.3f} images/s ({card})")
+    print(f"stage host seconds of one more image (each ends in synchronize): "
+          f"{json.dumps({k: round(v, 4) for k, v in timers.items() if not k.endswith('_n')})}")
+    print(f"peak device memory {peak / 2 ** 30:.2f} GiB")
+    print(f"launches in {n_images} images: {json.dumps(launches)}")
+    print(f"detections {n}, top scores {[round(x, 4) for x in out['scores'][:5]]}, "
+          f"classes {out['classes'][:5]}", flush=True)
+    want = {"encoder": cfg.enc_layers, "decoder_box": cfg.dec_layers,
+            "decoder_inst": cfg.dec_layers * cfg.n_feature_levels}
+    if launches != {k: n_images * v for k, v in want.items()}:
+        fail(f"COCO launches {launches}, want {want} per image")
+    if not 1 <= n <= inf.coco_topk or len(out["classes"]) != n:
+        fail(f"{n} detections, want 1 .. {inf.coco_topk}")
+    if not np.all(np.isfinite(out["scores"])) or not all(0 <= c < cfg.num_classes
+                                                         for c in out["classes"]):
+        fail("non-finite scores or labels out of range")
+    if out["masks"].shape != (n,) + ori or out["masks"].dtype != bool:
+        fail(f"masks {out['masks'].shape} {out['masks'].dtype}, want {(n,) + ori} bool")
+    if out["boxes"].shape != (n, 4) or not np.all(np.isfinite(out["boxes"])):
+        fail(f"boxes {out['boxes'].shape}")
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def match_detections(got, want):
+    """Pair each detection of ``got`` with one of ``want`` of the same label,
+    score within 5e-3, mask IoU >= 0.99 and boxes within 1 px (near-equal
+    scores may order differently). Returns (max score err, min IoU) or None
+    when some detection has no partner."""
+    if len(got["scores"]) != len(want["scores"]):
+        return None
+    free = set(range(len(want["scores"])))
+    worst_s, worst_iou = 0.0, 1.0
+    for i, (s, c) in enumerate(zip(got["scores"], got["classes"])):
+        best, best_iou = None, -1.0
+        for j in free:
+            if want["classes"][j] != c or abs(want["scores"][j] - s) > 5e-3:
+                continue
+            a, b = got["masks"][i], want["masks"][j]
+            union = np.logical_or(a, b).sum()
+            iou = 1.0 if union == 0 else np.logical_and(a, b).sum() / union
+            if iou > best_iou:
+                best, best_iou = j, iou
+        if best is None or best_iou < 0.99 \
+                or np.abs(got["boxes"][i] - want["boxes"][best]).max() > 1.0:
+            return None
+        worst_s = max(worst_s, abs(want["scores"][best] - s))
+        worst_iou = min(worst_iou, best_iou)
+        free.discard(best)
+    return worst_s, worst_iou
+
+
+def coco_small_card_vs_cpu(da):
+    """COCO inference of a small image on the card against the port's CPU
+    path, tiny R50 COCO configuration (that of tests/test_torch_coco.py, the
+    class bias zeroed), both multi_cls_on branches: the same detections. Then
+    ``coco_object_masks_card_vs_cpu`` with the same two models."""
+    from mdqe_cvpr2023_tpu_torch.models import meta
+    from mdqe_cvpr2023_tpu_torch.models.detr import MDQEModel, MDQEModelCfg
+    tiny = MDQEModelCfg(backbone="resnet50", num_classes=3, hidden_dim=64, n_heads=4,
+                        enc_layers=1, dec_layers=1, n_frames=1, n_query=16,
+                        query_embed_dim=8, window_inter_frame_asso=5, dec_temporal=True)
+    img = np.random.default_rng(0).integers(0, 255, (1, 56, 60, 3)).astype(np.uint8)
+    frames, _ = meta.preprocess_frames(img)
+    models = {}
+    for dev in ("cuda", "cpu"):
+        models[dev] = MDQEModel(tiny, device=dev, seed=3)
+        with torch.no_grad():
+            models[dev].detr.transformer_dec.cls_embed.layers[-1].bias.zero_()
+    for multi in (True, False):
+        inf = meta.InferenceCfg(num_classes=3, apply_cls_thres=0.05, multi_cls_on=multi,
+                                coco_topk=100)
+        da.reset_launches()
+        got = meta.inference_image(models["cuda"], inf, frames, (56, 60), (84, 90))
+        if min(da.LAUNCHES.values()) == 0:
+            fail(f"small COCO run did not reach every kernel call site: {da.LAUNCHES}")
+        want = meta.inference_image(models["cpu"], inf, frames, (56, 60), (84, 90),
+                                    device="cpu")
+        res = match_detections(got, want)
+        print(f"small image, multi_cls_on={multi}: detections {len(got['scores'])} vs "
+              f"{len(want['scores'])}; max|score err|, min mask IoU: {res}", flush=True)
+        if res is None or not got["scores"]:
+            fail(f"the card's COCO output disagrees with the CPU path (multi_cls_on={multi})")
+    coco_object_masks_card_vs_cpu(meta, models)
+
+
+def object_mask_outputs(n_query, n_cls, hw4, seed):
+    """Decoder outputs of a model that finds objects: class scores (1, Q, K)
+    in (0, 1), a few queries below the threshold, and per query an elliptic
+    mask-logit blob (1, Q, 1, h4, w4) of its own centre and radii, so masks
+    differ and their boxes overlap in part (random weights give masks that
+    all span the image, whose boxes coincide)."""
+    rng = np.random.default_rng(seed)
+    cls = rng.uniform(0.06, 0.9, (n_query, n_cls)).astype(np.float32)
+    cls[rng.choice(n_query, 3, replace=False)] = 0.02
+    yy, xx = np.mgrid[0:hw4[0], 0:hw4[1]].astype(np.float32)
+    cy = rng.uniform(0, hw4[0], n_query)[:, None, None]
+    cx = rng.uniform(0, hw4[1], n_query)[:, None, None]
+    ry = rng.uniform(1.5, hw4[0] / 2.5, n_query)[:, None, None]
+    rx = rng.uniform(1.5, hw4[1] / 2.5, n_query)[:, None, None]
+    m4 = 4.0 * (1.0 - ((yy - cy) / ry) ** 2 - ((xx - cx) / rx) ** 2)
+    return cls[None], m4.astype(np.float32)[None, :, None]
+
+
+def coco_object_masks_card_vs_cpu(meta, models):
+    """COCO post-processing (rescoring, box-IoU decay in score order, the
+    top-100 slab, packed masks, host resize, boxes) on the card against the
+    CPU path at the full query and class width (196 x 80) of a 320x480 image,
+    on object-like decoder outputs (``object_mask_outputs``) put in place of
+    the forward, both multi_cls_on branches: the same detections, at least
+    5 distinct queries among them, some boxes overlapping in part."""
+    cls, m4 = object_mask_outputs(196, 80, (80, 120), seed=7)
+    frames = np.zeros((1, 320, 480, 3), np.uint8)
+    forward = meta.detr_apply_coco
+    meta.detr_apply_coco = lambda detr, images, sizes, T: {
+        "cls": torch.from_numpy(cls).to(images.device),
+        "masks": torch.from_numpy(m4).to(images.device)}
+    try:
+        for multi in (True, False):
+            inf = meta.InferenceCfg(num_classes=80, apply_cls_thres=0.05, multi_cls_on=multi,
+                                    coco_topk=100)
+            got = meta.inference_image(models["cuda"], inf, frames, (320, 480), (480, 720))
+            want = meta.inference_image(models["cpu"], inf, frames, (320, 480), (480, 720),
+                                        device="cpu")
+            res = match_detections(got, want)
+            distinct = {m.tobytes(): i for i, m in enumerate(got["masks"])}
+            boxes = [got["boxes"][i] for i in distinct.values()]
+            partial = sum(0.0 < box_iou(a, b) < 1.0
+                          for k, a in enumerate(boxes) for b in boxes[k + 1:])
+            print(f"object-like masks, multi_cls_on={multi}: detections "
+                  f"{len(got['scores'])} vs {len(want['scores'])}, {len(distinct)} distinct "
+                  f"masks, {partial} box pairs overlapping in part; max|score err|, min mask "
+                  f"IoU: {res}", flush=True)
+            if res is None or len(distinct) < 5 or partial == 0:
+                fail(f"the card's COCO post-processing disagrees with the CPU path on "
+                     f"object-like masks (multi_cls_on={multi})")
+    finally:
+        meta.detr_apply_coco = forward
+
+
+def box_iou(a, b):
+    """IoU of two xyxy boxes (numpy)."""
+    inter = np.prod(np.clip(np.minimum(a[2:], b[2:]) - np.maximum(a[:2], b[:2]), 0, None))
+    return inter / (np.prod(a[2:] - a[:2]) + np.prod(b[2:] - b[:2]) - inter)
+
+
+def tool_paths(da, tdk, pbp, pmk):
+    """The three kernel tools' sweeps, each problem driven with the launch
+    counts set to 0 just before it and read just after (a tuning level, a
+    probe problem; tc_kdepth counts per shape). Returns their rows, each with
+    the launches of its own problem."""
+    from mdqe_cvpr2023_tpu_torch.ops import tc_kdepth as tc
+    tune_rows = []
+    for h, w in tdk.LEVELS:
+        da.reset_launches()
+        rows = tdk.sweep(iters=20, levels=((h, w),))
+        counts = dict(da.BLOCK_LAUNCHES)
+        print(f"tune {h}x{w} launches {json.dumps(counts)}", flush=True)
+        for r in rows:
+            r["launches"] = counts[f"{r['value']}_t{r['threads']}"]
+            if r["launches"] == 0:
+                fail(f"the tuning sweep never launched {r['value']} at {r['threads']} "
+                     f"threads at level {h}x{w}")
+        tune_rows += rows
+    for r in tune_rows:
+        print(f"tune {r['level']:6s} {r['value']:4s} threads {r['threads']:3d}: "
+              f"{r['ms']:.4f} ms, {r['gb_per_s']:.1f} GB/s, {r['share_of_bound']:.1%} of "
+              f"bound ({r['bound_ms'] * 1e3:.1f} us by {r['bound_by']}); plain "
+              f"{r['plain_ms']:.3f} ms, grid_sample {r['library_ms']:.3f} ms", flush=True)
+
+    probe_rows = []
+    for problem in pbp.problems():
+        da.reset_launches()
+        (r,) = pbp.sweep(iters=20, only=[problem])
+        r["launches"] = da.BLOCK_LAUNCHES[da.block_variant(torch.bfloat16, pbp.THREADS)]
+        if r["launches"] == 0:
+            fail(f"the gather probe never launched the kernel at {problem}")
+        probe_rows.append(r)
+    for r in probe_rows:
+        print(f"probe {r['spread']:5s} {r['size']:8s}: {r['ms']:.4f} ms (graph replay "
+              f"{r['device_ms']:.4f} ms, {r['device_gb_per_s']:.1f} GB/s), "
+              f"{r['gb_per_s']:.1f} GB/s, {r['share_of_bound']:.1%} of bound "
+              f"({r['bound_ms'] * 1e3:.1f} us by {r['bound_by']}); plain {r['plain_ms']:.3f} "
+              f"ms, grid_sample {r['library_ms']:.4f} ms; {r['launches']} launches",
+              flush=True)
+
+    tc.reset_launches()
+    tc_rows = pmk.sweep(iters=10)
+    tc_launches = dict(tc.LAUNCHES)
+    for r in tc_rows:
+        print(f"tc_kdepth K={r['K']:3d} N={r['N']:4d}: {r['ms']:.4f} ms/launch, "
+              f"{r['tflop_per_s']:.1f} TFLOP/s ({r['share_of_peak']:.1%} of 989); graph replay "
+              f"{r['device_ms']:.4f} ms, {r['device_tflop_per_s']:.1f} TFLOP/s "
+              f"({r['device_share_of_peak']:.1%}), "
+              f"{r['us_per_product']:.2f} us/product | cuBLAS stacked "
+              f"{r['cublas_stacked_ms']:.4f} ms ({r['cublas_stacked_tflop_per_s']:.1f} "
+              f"TFLOP/s), one product {r['library_ms']:.4f} ms "
+              f"({r['library_tflop_per_s']:.1f} TFLOP/s) | plain {r['plain_ms']:.3f} ms",
+              flush=True)
+    print(f"tc_kdepth launches {json.dumps(tc_launches)}", flush=True)
+    if len(tc_launches) != len(tc_rows) or min(tc_launches.values()) == 0:
+        fail(f"the depth sweep did not launch tc_kdepth at every shape: {tc_launches}")
+    return tune_rows, probe_rows, tc_rows, tc_launches
+
+
 def main():
-    import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a CUDA card")
-    here = os.path.dirname(os.path.abspath(__file__))
-    if not os.path.isdir(os.path.join(here, "mdqe_cvpr2023_tpu_torch")):
-        fail("the mdqe_cvpr2023_tpu_torch package is not beside this script")
-    sys.path.insert(0, here)
     from mdqe_cvpr2023_tpu_torch.ops import _build
     from mdqe_cvpr2023_tpu_torch.ops import deform_attn as da
     from mdqe_cvpr2023_tpu_torch.models import meta
     from mdqe_cvpr2023_tpu_torch.models.detr import MDQEModel, MDQEModelCfg
+    from mdqe_cvpr2023_tpu_torch.tools import probe_band_primitives as pbp
+    from mdqe_cvpr2023_tpu_torch.tools import probe_mxu_kdepth as pmk
+    from mdqe_cvpr2023_tpu_torch.tools import tune_deform_kernel as tdk
 
     # ---- 1. device -------------------------------------------------------
     phase("device")
@@ -460,9 +778,10 @@ def main():
     # ---- 2. build --------------------------------------------------------
     phase("build")
     t0 = time.perf_counter()
-    _build.build("ms_deform_attn")
+    _build.build_all(["ms_deform_attn", "tc_kdepth"])  # one nvcc each, in parallel
     print(f"nvcc build {time.perf_counter() - t0:.1f} s (sm_90a)")
-    print(_build.ptxas_report("ms_deform_attn").strip(), flush=True)
+    for name in ("ms_deform_attn", "tc_kdepth"):
+        print(_build.ptxas_report(name).strip(), flush=True)
 
     # ---- 3. kernel against plain -------------------------------------------
     phase("kernel against plain version")
@@ -498,6 +817,13 @@ def main():
     phase("backward kernel against autograd of the plain version")
     bwd_max_err, train_fwd_err = check_backward(torch, da)
 
+    phase("block-size launchers against the plain version")
+    block_err = check_block_variants(da, tdk)
+    phase("gather probe against the tool's oracle")
+    probe_err = check_probe(pbp)
+    phase("tc_kdepth against its plain version")
+    tc_err = check_tc(pmk)
+
     # ---- 4. kernel timing ----------------------------------------------------
     phase(f"kernel timing ({card})")
     timing_shapes = {
@@ -512,12 +838,12 @@ def main():
     for k, (site, spec) in enumerate(timing_shapes.items()):
         B, Q, H, D, P, shapes, mode, vdt, line = spec
         v, lo, aw = make_inputs(torch, B, Q, H, D, P, shapes, mode, vdt, seed=100 + k)
-        ms = time_ms(torch, lambda: da.ms_deform_attn_cuda(v, shapes, lo, aw), 50)
-        plain_ms = time_ms(torch, lambda: da.ms_deform_attn_plain(v, shapes, lo, aw), 5)
-        lib_ms = time_ms(torch, lambda: grid_sample_msda(torch, v, shapes, lo, aw), 5)
-        lib_err = float((grid_sample_msda(torch, v, shapes, lo, aw)
+        ms = measure.time_ms(lambda: da.ms_deform_attn_cuda(v, shapes, lo, aw), 50)
+        plain_ms = measure.time_ms(lambda: da.ms_deform_attn_plain(v, shapes, lo, aw), 5)
+        lib_ms = measure.time_ms(lambda: measure.grid_sample_msda(v, shapes, lo, aw), 5)
+        lib_err = float((measure.grid_sample_msda(v, shapes, lo, aw)
                          - da.ms_deform_attn_plain(v, shapes, lo, aw)).abs().max())
-        bound_ms, bound_by, nbytes = bound_of(torch, v, shapes, lo, aw)
+        bound_ms, bound_by, nbytes = measure.msda_bound(v, shapes, lo, aw)
         timings[site] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                              bound_ms=bound_ms, bound_by=bound_by,
                              replaces=f"{PALLAS}:{line}")
@@ -532,6 +858,9 @@ def main():
 
     phase(f"backward kernel timing ({card})")
     bwd_timings, train_fwd_timings = time_backward(torch, da)
+
+    phase(f"forward kernel at the COCO sites ({card})")
+    coco_err, coco_timings = coco_kernel_sites(da)
 
     # ---- 5. main path ----------------------------------------------------------
     phase("main path: inference_vis at full width")
@@ -627,35 +956,51 @@ def main():
     del model, m_gpu, m_cpu
     torch.cuda.empty_cache()
 
+    # ---- 5b. COCO image inference -------------------------------------------
+    phase(f"main path: COCO image inference at full width ({card})")
+    coco_launches = coco_full_width(da, card)
+    phase("small image: the card's COCO path against the port's CPU path")
+    coco_small_card_vs_cpu(da)
+
     # ---- 6. training -------------------------------------------------------------
     phase(f"main path: the training step at full width ({card})")
     train_fwd_launches, train_bwd_launches = train_full_width(torch, da, card, bwd_timings)
     phase("tiny training step: the card's path against the port's CPU path")
     tiny_train_card_vs_cpu(torch)
 
-    # ---- 7. results ------------------------------------------------------------
+    # ---- 7. the kernel tools ------------------------------------------------------
+    phase(f"main path: the kernel tools' sweeps ({card})")
+    tune_rows, probe_rows, tc_rows, tc_launches = tool_paths(da, tdk, pbp, pmk)
+
+    # ---- 8. results ------------------------------------------------------------
     kernels = []
     for site, t in timings.items():
-        kernels.append({
-            "name": f"ms_deform_attn_fwd[{site}]", "route": "cuda", "source": SOURCE,
-            "replaces": t["replaces"], "launches": launches[site],
-            "max_abs_err": max_err[site], "ms": t["ms"], "plain_ms": t["plain_ms"],
-            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"]})
+        kernels.append(kernel_entry(f"ms_deform_attn_fwd[{site}]", SOURCE, t["replaces"],
+                                    launches[site], max_err[site], t))
     for site, t in train_fwd_timings.items():
-        kernels.append({
-            "name": f"ms_deform_attn_fwd[{site},train]", "route": "cuda", "source": SOURCE,
-            "replaces": f"{PALLAS}:121", "launches": train_fwd_launches[site],
-            "max_abs_err": train_fwd_err[site], "ms": t["ms"], "plain_ms": t["plain_ms"],
-            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"]})
+        kernels.append(kernel_entry(f"ms_deform_attn_fwd[{site},train]", SOURCE,
+                                    f"{PALLAS}:121", train_fwd_launches[site],
+                                    train_fwd_err[site], t))
     for site, t in bwd_timings.items():
-        kernels.append({
-            "name": f"ms_deform_attn_bwd[{site}]", "route": "cuda", "source": SOURCE,
-            "replaces": BWD_REPLACES, "launches": train_bwd_launches[site],
-            "max_abs_err": bwd_max_err[site], "ms": t["ms"], "plain_ms": t["plain_ms"],
-            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"]})
+        kernels.append(kernel_entry(f"ms_deform_attn_bwd[{site}]", SOURCE, BWD_REPLACES,
+                                    train_bwd_launches[site], bwd_max_err[site], t))
+    for site, t in coco_timings.items():
+        line = 569 if site == "encoder" else 121
+        kernels.append(kernel_entry(f"ms_deform_attn_fwd[{site},coco]", SOURCE,
+                                    f"{PALLAS}:{line}", coco_launches[site], coco_err[site], t))
+    for r in tune_rows:  # each level's own launches and error
+        key = f"{r['value']}_t{r['threads']}"
+        kernels.append(kernel_entry(f"ms_deform_attn_fwd[tune,{r['level']},{key}]", SOURCE,
+                                    tdk.REPLACES, r["launches"],
+                                    block_err[r["level"], key], r))
+    for r in probe_rows:
+        kernels.append(kernel_entry(f"ms_deform_attn_fwd[probe,{r['spread']},{r['size']}]",
+                                    SOURCE, pbp.REPLACES, r["launches"],
+                                    probe_err[r["spread"], r["size"]], r))
+    for r in tc_rows:
+        key = f"K{r['K']}_N{r['N']}"
+        kernels.append(kernel_entry(f"tc_kdepth[{key}]", TC_SOURCE, pmk.REPLACES,
+                                    tc_launches[key], tc_err[key], r))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,0 +1,37 @@
+"""Configurations the port runs, read by hand from the repository's
+``configs/*.yaml`` (no config engine) with the defaults of
+``mdqe_cvpr2023_tpu/engine/config.py`` and the derivations of
+``mdqe_cvpr2023_tpu/engine/build.py``.
+
+R50 COCO (``configs/R50_coco.yaml``): ResNet-50, hidden 256, 8 heads, 6 + 6
+layers, 4 levels, 4 + 4 points, NUM_OBJECT_QUERIES 200 -> floor(sqrt(200))^2
+= 196 queries, 80 classes, query embedding 64, WINDOW_INTER_FRAME_ASSOCIATION
+5, DEC_TEMPORAL, SAMPLING_FRAME_NUM 1 (one frame per clip); test size 800 on
+the short side and at most 1333 on the long one; APPLY_CLS_THRES 0.05 and
+MULTI_CLS_ON (the defaults); at most 100 detections per image (``coco_topk``).
+"""
+from __future__ import annotations
+
+import math
+
+from .models.detr import MDQEModelCfg
+from .models.meta import InferenceCfg
+
+R50_COCO = MDQEModelCfg(backbone="resnet50", num_classes=80, hidden_dim=256, n_heads=8,
+                        n_feature_levels=4, enc_layers=6, dec_layers=6, enc_points=4,
+                        dec_points=4, n_frames=1, n_query=int(math.sqrt(200)) ** 2,
+                        query_embed_dim=64, window_inter_frame_asso=5, dec_temporal=True)
+R50_COCO_INF = InferenceCfg(num_classes=80, apply_cls_thres=0.05, multi_cls_on=True,
+                            match_stride=4, coco_topk=100)
+COCO_MIN_SIZE_TEST = 800
+COCO_MAX_SIZE_TEST = 1333
+
+
+def coco_test_size(h: int, w: int):
+    """The (h, w) an image of size (h, w) is resized to for COCO testing: the
+    short side to ``COCO_MIN_SIZE_TEST`` unless the long side would pass
+    ``COCO_MAX_SIZE_TEST`` (``Trainer.test_coco`` of the JAX package)."""
+    scale = COCO_MIN_SIZE_TEST / min(h, w)
+    if max(h, w) * scale > COCO_MAX_SIZE_TEST:
+        scale = COCO_MAX_SIZE_TEST / max(h, w)
+    return int(round(h * scale)), int(round(w * scale))

@@ -363,16 +363,28 @@ class TransformerDecoder(nn.Module):
                 "query_init": aux,
                 "query_coords": query_coords}
 
-    def forward(self, encoded, padding_mask, spatial_shapes, n_frames: int):
-        """Eval ``decoder_apply(training=False)`` for the VIS path.
-        encoded (BT,N,C), padding_mask (BT,N) True on padded. Returns
-        {'cls' (B,Q,K) sigmoid, 'mask_coeff' (B,Q,M), 'query_embed' (B,Q,C)}."""
-        query, query_coords, _ = self.query_initialization(encoded, spatial_shapes,
-                                                           n_frames)
-        insts, _ = self.decoder_loop(query, query_coords, encoded,
-                                     spatial_shapes, padding_mask, n_frames)
+    def forward(self, encoded, padding_mask, spatial_shapes, n_frames: int,
+                is_coco: bool = False):
+        """Eval ``decoder_apply(training=False, is_coco=...)``. encoded
+        (BT,N,C), padding_mask (BT,N) True on padded. Returns {'cls' (B,Q,K)
+        sigmoid} and, for the VIS path, {'mask_coeff' (B,Q,M), 'query_embed'
+        (B,Q,C)}; with ``is_coco``, {'masks' (B,Q,BT,h4,w4) mask logits of
+        every frame, 'boxes' (B,Q,T,4) xyxy of the last layer}."""
+        T = n_frames
+        query, query_coords, _ = self.query_initialization(encoded, spatial_shapes, T)
+        insts, boxes = self.decoder_loop(query, query_coords, encoded,
+                                         spatial_shapes, padding_mask, T)
         x_inst = insts[-1]
         last = self.decoder_norm(x_inst)
-        return {"cls": torch.sigmoid(self.cls_embed(last)),
-                "mask_coeff": torch.tanh(self.mask_embed(last)),
-                "query_embed": x_inst}
+        out = {"cls": torch.sigmoid(self.cls_embed(last))}
+        coeff = torch.tanh(self.mask_embed(last))
+        if not is_coco:
+            out["mask_coeff"] = coeff
+            out["query_embed"] = x_inst
+            return out
+        maps = encoded_to_maps(encoded, spatial_shapes)
+        proto = self.mask_head(maps[2], [maps[1], maps[0]])          # (BT,h4,w4,M)
+        out["masks"] = torch.einsum("bqm,thwm->bqthw", coeff, proto)
+        BT, Q, _ = boxes[-1].shape
+        out["boxes"] = box_cxcywh_to_xyxy(boxes[-1].reshape(BT // T, T, Q, 4).transpose(1, 2))
+        return out

@@ -166,6 +166,16 @@ def detr_apply_backbone(detr: DeformableDETR, images, image_sizes, n_frames: int
                                               generator)
 
 
+def detr_apply_coco(detr: DeformableDETR, images, image_sizes, n_frames: int):
+    """The eval forward of COCO image inference (``detr_apply_backbone(...,
+    training=False, is_coco=True)`` of the JAX package, ``amp=False``):
+    backbone, encoder and decoder in fp32. images (BT,Hp,Wp,3) normalized.
+    Returns the decoder's ``is_coco`` dict (``TransformerDecoder.forward``)."""
+    encoded, mask_flat, spatial_shapes = detr_encode(detr, images, image_sizes)
+    return detr.transformer_dec(encoded.float(), mask_flat, spatial_shapes, n_frames,
+                                is_coco=True)
+
+
 # The ResNet stages frozen in training: Detectron2's MODEL.BACKBONE.FREEZE_AT
 # 2, the stem and res2 (``frozen_leaf_mask(params, freeze_at=2)`` of the JAX
 # package). The other leaves that the JAX mask freezes (FrozenBN statistics,

@@ -1,7 +1,8 @@
-"""Windowed near-online VIS inference (counterpart of
-``mdqe_cvpr2023_tpu/models/meta.py``, VIS path): frame preprocessing, window
-encode, batched clip decode with fixed-slab post-processing, the device
-tracker, deferred per-window mask finalization and the video-level merge.
+"""Windowed near-online VIS inference and COCO image inference (counterpart
+of ``mdqe_cvpr2023_tpu/models/meta.py``): frame preprocessing, window encode,
+batched clip decode with fixed-slab post-processing, the device tracker,
+deferred per-window mask finalization and the video-level merge; and
+``inference_image``, one image as a one-frame clip.
 
 The schedule is the JAX package's: clips of ``n_frames_test`` frames every
 ``clip_stride`` frames, a tail clip shifted back to the last full clip,
@@ -23,12 +24,14 @@ import torch
 
 from ..tracking.device_tracker import (TrackerCfg, tracker_state_init,
                                        tracker_step, tracker_window_average)
-from ..tracking.mask_memory import finalize_from_avg
-from ..utils.misc import resolve_device
-from .detr import MDQEModel, MDQEModelCfg, detr_mask_feats
+from ..tracking.mask_memory import finalize_from_avg, packbits
+from ..utils.boxes import box_iou, masks_to_boxes
+from ..utils.misc import aligned_bilinear, resolve_device
+from .detr import MDQEModel, MDQEModelCfg, detr_apply_coco, detr_mask_feats
 
 S_BATCH = 8                 # clips of one window decoded together
 FINALIZE_CHUNK = 8          # rows per mask-finalize call
+COCO_ROW_CHUNK = 28         # queries whose full-size mask logits exist at once
 ENCODE_PREFIXES = ("backbone.", "input_proj.", "transformer_enc.")
 
 
@@ -39,11 +42,13 @@ class InferenceCfg:
     n_frames_window_test: int = 30
     max_num_instances: int = 120
     apply_cls_thres: float = 0.1
+    multi_cls_on: bool = True      # COCO: one detection per (query, class) above
     match_stride: int = 4
     clip_topk: int = 32            # fixed per-clip detection slab
     encode_chunk: int = 10         # frames per backbone/encoder call
     num_classes: int = 25
     bf16_encode: bool = True       # fp32 backbone + encoder when False
+    coco_topk: int = 100           # fixed COCO per-image detection slab
     # reference thresholds: the clip's 0.99 query-similarity dedup and the
     # tracker's repeat suppression
     dedup_sim: float = 0.99
@@ -440,3 +445,134 @@ def inference_vis(model: MDQEModel, inf_cfg: InferenceCfg, frames: np.ndarray,
     return {"image_size": ori_size, "pred_scores": out_scores,
             "pred_labels": out_labels, "pred_masks": out_masks,
             "num_tracks": int(total)}
+
+
+def coco_device_stage(model: MDQEModel, inf_cfg: InferenceCfg, image_u8, image_size,
+                      pixel_mean, pixel_std, stage=None):
+    """All device work of COCO image inference (``_coco_device_stage`` of the
+    JAX package): normalize, the fp32 forward, aligned-bilinear upsample of
+    the centre frame's mask logits with the padding masked out, mask-quality
+    rescoring, box-IoU score decay in score order, and the fixed top-D slab of
+    (score, label, query) with bit-packed binary masks; multi-class (every
+    (query, class) pair above the threshold) or one class per query.
+
+    image_u8 (T, Hp, Wp, 3) uint8 on the device; image_size the true (h, w).
+    The full-size logits (Q, Hp, Wp) fp32 are made ``COCO_ROW_CHUNK`` queries
+    at a time; only the binary masks (one byte a pixel) exist for all queries.
+    Ties in the top-D slab go to the lower index, as ``lax.top_k`` breaks
+    them. ``stage`` (a ``_Stages``) times the forward and the
+    post-processing. Returns scores (D,), labels (D,), valid (D,) (a prefix)
+    and packed masks (D, Hp, ceil(Wp/8)) uint8."""
+    T = image_u8.shape[0]
+    dev = image_u8.device
+    stage = stage or _Stages(None, dev)
+    with stage("forward"):
+        norm = (image_u8.float() - pixel_mean) / pixel_std
+        sizes = torch.tensor([list(image_size)] * T, dtype=torch.int32, device=dev)
+        out = detr_apply_coco(model.detr, norm, sizes, T)
+        cls = out["cls"][0].float()                 # (Q, K) sigmoid
+        m4 = out["masks"][0][:, (T - 1) // 2]       # (Q, h4, w4) logits, centre frame
+        del out
+    with stage("post"):
+        return _coco_post(cls, m4, inf_cfg, image_size)
+
+
+def _coco_post(cls, m4, inf_cfg: InferenceCfg, image_size):
+    """The post-processing of ``coco_device_stage`` on the class scores (Q, K)
+    and the centre frame's mask logits (Q, h4, w4)."""
+    dev = cls.device
+    Q, K = cls.shape
+    neg = -1e9
+    thres = inf_cfg.apply_cls_thres
+    h, w = int(image_size[0]), int(image_size[1])
+
+    stride = inf_cfg.match_stride
+    hard = torch.empty((Q, m4.shape[1] * stride, m4.shape[2] * stride), dtype=torch.bool,
+                       device=dev)
+    num = torch.empty(Q, dtype=torch.float32, device=dev)
+    den = torch.empty(Q, dtype=torch.float32, device=dev)
+    for c in range(0, Q, COCO_ROW_CHUNK):
+        up = aligned_bilinear(m4[c:c + COCO_ROW_CHUNK], stride)   # (n, Hp, Wp)
+        up[:, h:] = neg                                 # padding == the reference crop
+        up[:, :, w:] = neg
+        hard[c:c + COCO_ROW_CHUNK] = up > 0.0
+        soft = torch.sigmoid(up)
+        hard_f = soft > 0.5
+        num[c:c + COCO_ROW_CHUNK] = torch.where(hard_f, soft, 0.0).sum((1, 2))
+        den[c:c + COCO_ROW_CHUNK] = hard_f.sum((1, 2)).float()
+        del up, soft, hard_f
+
+    score0 = cls.amax(-1)
+    keep = score0 >= score0.max().clamp(max=thres)
+    cls = cls * (num / (den + 1e-6))[:, None]
+
+    # box-IoU score decay among kept queries, in rescored-score order
+    boxes = masks_to_boxes(hard)
+    biou = box_iou(boxes, boxes)[0]
+    s_rank = torch.where(keep, cls.amax(-1), neg)
+    order = torch.argsort(-s_rank, stable=True)
+    rank = torch.argsort(order, stable=True)
+    higher = (rank[None, :] < rank[:, None]) & keep[None, :]
+    max_biou = torch.where(higher, biou, 0.0).amax(1)
+    cls = cls * (1 - max_biou)[:, None]
+
+    D = min(inf_cfg.coco_topk, Q * K)
+    if inf_cfg.multi_cls_on:
+        flat = torch.where(keep[:, None] & (cls > thres), cls, neg).reshape(-1)
+        top_s, top_i = torch.sort(flat, descending=True, stable=True)
+        top_s, top_i = top_s[:D], top_i[:D]
+        qi, labels = top_i // K, top_i % K
+    else:
+        per_q = torch.where(keep, cls.amax(-1), neg)
+        top_s, qi = torch.sort(per_q, descending=True, stable=True)
+        top_s, qi = top_s[:min(D, Q)], qi[:min(D, Q)]
+        labels = cls.argmax(-1)[qi]
+    return top_s, labels, top_s > neg / 2, packbits(hard[qi])
+
+
+@torch.inference_mode()
+def inference_image(model: MDQEModel, inf_cfg: InferenceCfg, image: np.ndarray,
+                    image_size: Tuple[int, int], ori_size: Tuple[int, int],
+                    pixel_mean=(123.675, 116.28, 103.53),
+                    pixel_std=(58.395, 57.12, 57.375), device=None,
+                    timers: Optional[dict] = None):
+    """COCO-style instance segmentation of one image, as a one-frame clip
+    (``inference_image`` of the JAX package).
+
+    image: (T, Hp, Wp, 3) padded uint8 on the host (normalized on the device);
+    image_size: the true (h, w) before padding; ori_size: the original (h,
+    w). Runs on the card unless ``device="cpu"``; the model must be on that
+    device. Masks are binarized at model resolution on the device and
+    nearest-resized to the original size on the host (index floor(i * h /
+    oh)). ``timers``: a dict that receives host seconds per stage (upload,
+    forward, post, host; each device stage then ends in a synchronize).
+    Returns {scores, classes, masks (n, oh, ow) bool, boxes (n, 4) xyxy pixel
+    fp32}."""
+    dev = resolve_device(device)
+    if model.device != dev:
+        raise ValueError(f"model is on {model.device}, inference asked for {dev}")
+    # full fp32 products and convolutions, as the JAX package's COCO stage
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    stage = _Stages(timers, dev)
+    with stage("upload"):
+        img = torch.from_numpy(np.ascontiguousarray(image)).to(dev)
+        mean = torch.tensor(pixel_mean, dtype=torch.float32, device=dev)
+        std = torch.tensor(pixel_std, dtype=torch.float32, device=dev)
+    top_s, labels, valid, packed = coco_device_stage(model, inf_cfg, img, image_size,
+                                                     mean, std, stage)
+    with stage("host"):
+        n = int(valid.sum())
+        scores = top_s[:n].cpu().numpy()
+        labels = labels[:n].cpu().numpy()
+        W = image.shape[2]
+        masks = np.unpackbits(packed[:n].cpu().numpy(), axis=-1)[..., :W].astype(bool)
+        masks = masks[:, :image_size[0], :image_size[1]]
+
+        oh, ow = int(ori_size[0]), int(ori_size[1])
+        iy = np.floor(np.arange(oh) * (image_size[0] / oh)).astype(np.int64)
+        ix = np.floor(np.arange(ow) * (image_size[1] / ow)).astype(np.int64)
+        final_masks = masks[:, iy][:, :, ix] if n else np.zeros((0, oh, ow), bool)
+        boxes = masks_to_boxes(torch.from_numpy(final_masks)).numpy()
+    return {"scores": scores.tolist(), "classes": labels.tolist(),
+            "masks": final_masks, "boxes": boxes}

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-Each source under ``ops/csrc`` is compiled by ``nvcc`` for ``sm_90a`` into a
-shared library with a plain C interface, loaded with ``ctypes``. The library
+Each source under ``ops/csrc`` (``ms_deform_attn.cu``, ``tc_kdepth.cu``) is
+compiled by ``nvcc`` for ``sm_90a`` into a shared library with a plain C
+interface, loaded with ``ctypes``. The library
 name carries a hash of the source, so an edited source is rebuilt and an
 unchanged one is reused. Builds go to ``<repo>/build/kernels`` (listed in
 ``.gitignore``) at first use, never at import. The compiler's ``-Xptxas -v``
@@ -38,27 +39,47 @@ def _nvcc() -> str:
     return str(path)
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless an up-to-date library exists; return
-    the library's path. Concurrent builds race harmlessly: each writes a
-    private temporary file and renames it into place."""
+def _library(name: str) -> Path:
     src = CSRC / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
-    lib = BUILD_DIR / f"lib{name}_{digest}.so"
-    if lib.exists():
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}) for {src}:\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    lib.with_suffix(".ptxas.txt").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, lib)
-    return lib
+    return BUILD_DIR / f"lib{name}_{digest}.so"
+
+
+def build_all(names) -> dict:
+    """Compile ``csrc/<name>.cu`` for each name that has no up-to-date
+    library, one ``nvcc`` per source, all started together; return {name:
+    library path}. Concurrent builds race harmlessly: each writes a private
+    temporary file and renames it into place."""
+    libs = {name: _library(name) for name in names}
+    running = []
+    for name, lib in libs.items():
+        if lib.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        src = CSRC / f"{name}.cu"
+        proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
+                                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        running.append((src, lib, tmp, proc))
+    failed = []
+    for src, lib, tmp, proc in running:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failed.append(f"nvcc failed ({proc.returncode}) for {src}:\n{out}\n{err}")
+            continue
+        lib.with_suffix(".ptxas.txt").write_text(out + err)
+        os.replace(tmp, lib)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return libs
+
+
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` unless an up-to-date library exists; return
+    the library's path."""
+    return build_all([name])[name]
 
 
 def ptxas_report(name: str) -> str:
@@ -73,14 +94,22 @@ def load(name: str) -> ctypes.CDLL:
     if name in _LOADED:
         return _LOADED[name]
     lib = ctypes.CDLL(str(build(name)))
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
     if name == "ms_deform_attn":
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
         for fn in (lib.msda_fwd_f32, lib.msda_fwd_bf16):
             fn.argtypes = [ptr, ptr, ptr, ptr, ptr] + [i32] * 7 + [ptr]
+            fn.restype = i32
+        for fn in (lib.msda_fwd_f32_block, lib.msda_fwd_bf16_block):
+            fn.argtypes = [ptr, ptr, ptr, ptr, ptr] + [i32] * 8 + [ptr]
             fn.restype = i32
         lib.msda_bwd_f32.argtypes = [ptr] * 8 + [i32] * 7 + [ptr]
         lib.msda_bwd_f32.restype = i32
         lib.msda_error_string.argtypes = [i32]
         lib.msda_error_string.restype = ctypes.c_char_p
+    elif name == "tc_kdepth":
+        lib.tc_kdepth_bf16.argtypes = [ptr, ptr, ptr] + [i32] * 4 + [ptr]
+        lib.tc_kdepth_bf16.restype = i32
+        lib.tc_error_string.argtypes = [i32]
+        lib.tc_error_string.restype = ctypes.c_char_p
     _LOADED[name] = lib
     return lib

@@ -60,6 +60,13 @@
 // query, so their location reads are contiguous. TMA, wgmma, locality-ordered
 // tiling and a deterministic segmented reduction for d(value) are left for
 // later work.
+//
+// Block size: the forward kernel is a template over its block size. The main
+// paths launch 256 threads (msda_fwd_f32, msda_fwd_bf16); msda_fwd_*_block
+// take 64, 128, 256 or 512 threads for the tuning sweep
+// (mdqe_cvpr2023_tpu_torch/tools/tune_deform_kernel.py), the Hopper
+// counterpart of the TPU kernel's query-tile sweep in
+// tools/tune_deform_kernel.py::run_level.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -68,14 +75,14 @@
 namespace {
 
 constexpr int kMaxLevels = 32;
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;  // the main paths' block size (and the backward's)
 constexpr int kWarpsPerBlock = kThreads / 32;
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
 
-template <typename T, int kChunks>
-__global__ void __launch_bounds__(kThreads) msda_fwd_kernel(
+template <typename T, int kChunks, int kBlock>
+__global__ void __launch_bounds__(kBlock) msda_fwd_kernel(
     const T* __restrict__ value, const int* __restrict__ level_meta,
     const float* __restrict__ loc, const float* __restrict__ attw,
     float* __restrict__ out, int B, int N, int Q, int H, int D, int L, int P) {
@@ -89,7 +96,7 @@ __global__ void __launch_bounds__(kThreads) msda_fwd_kernel(
   }
   __syncthreads();
 
-  const int64_t item = (int64_t)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  const int64_t item = (int64_t)blockIdx.x * (kBlock / 32) + (threadIdx.x >> 5);
   const int64_t total = (int64_t)B * Q * H;
   if (item >= total) return;  // whole warps exit; no barrier follows
   const int lane = threadIdx.x & 31;
@@ -278,31 +285,45 @@ __global__ void __launch_bounds__(kThreads) msda_bwd_kernel(
   }
 }
 
+template <typename T, int kBlock>
+int launch_fwd(const T* v, const int* m, const float* lo, const float* aw, float* o,
+               int B, int N, int Q, int H, int D, int L, int P, cudaStream_t s) {
+  const int64_t total = (int64_t)B * Q * H;
+  const int64_t blocks = (total + kBlock / 32 - 1) / (kBlock / 32);
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  if (D <= 32) {
+    msda_fwd_kernel<T, 1, kBlock><<<(unsigned)blocks, kBlock, 0, s>>>(
+        v, m, lo, aw, o, B, N, Q, H, D, L, P);
+  } else {
+    msda_fwd_kernel<T, 2, kBlock><<<(unsigned)blocks, kBlock, 0, s>>>(
+        v, m, lo, aw, o, B, N, Q, H, D, L, P);
+  }
+  return (int)cudaGetLastError();
+}
+
+// threads: the block size, one of 64, 128, 256, 512.
 template <typename T>
 int launch(const void* value, const void* level_meta, const void* loc,
            const void* attw, void* out, int B, int N, int Q, int H, int D,
-           int L, int P, void* stream) {
+           int L, int P, int threads, void* stream) {
   if (L < 1 || L > kMaxLevels || D < 1 || D > 64 || P < 1) {
     return (int)cudaErrorInvalidValue;
   }
-  const int64_t total = (int64_t)B * Q * H;
-  if (total == 0) return (int)cudaSuccess;
-  const int64_t blocks = (total + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  if ((int64_t)B * Q * H == 0) return (int)cudaSuccess;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const T* v = static_cast<const T*>(value);
   const int* m = static_cast<const int*>(level_meta);
   const float* lo = static_cast<const float*>(loc);
   const float* aw = static_cast<const float*>(attw);
   float* o = static_cast<float*>(out);
-  if (D <= 32) {
-    msda_fwd_kernel<T, 1><<<(unsigned)blocks, kThreads, 0, s>>>(v, m, lo, aw, o, B, N, Q, H, D, L, P);
-  } else {
-    msda_fwd_kernel<T, 2><<<(unsigned)blocks, kThreads, 0, s>>>(v, m, lo, aw, o, B, N, Q, H, D, L, P);
+  switch (threads) {
+    case 64: return launch_fwd<T, 64>(v, m, lo, aw, o, B, N, Q, H, D, L, P, s);
+    case 128: return launch_fwd<T, 128>(v, m, lo, aw, o, B, N, Q, H, D, L, P, s);
+    case 256: return launch_fwd<T, 256>(v, m, lo, aw, o, B, N, Q, H, D, L, P, s);
+    case 512: return launch_fwd<T, 512>(v, m, lo, aw, o, B, N, Q, H, D, L, P, s);
+    default: return (int)cudaErrorInvalidConfiguration;
   }
-  return (int)cudaGetLastError();
 }
-
 
 int launch_bwd(const void* value, const void* level_meta, const void* loc,
                const void* attw, const void* grad_out, void* grad_value,
@@ -341,13 +362,29 @@ extern "C" {
 int msda_fwd_f32(const void* value, const void* level_meta, const void* loc,
                  const void* attw, void* out, int B, int N, int Q, int H, int D,
                  int L, int P, void* stream) {
-  return launch<float>(value, level_meta, loc, attw, out, B, N, Q, H, D, L, P, stream);
+  return launch<float>(value, level_meta, loc, attw, out, B, N, Q, H, D, L, P, kThreads,
+                       stream);
 }
 
 int msda_fwd_bf16(const void* value, const void* level_meta, const void* loc,
                   const void* attw, void* out, int B, int N, int Q, int H, int D,
                   int L, int P, void* stream) {
-  return launch<__nv_bfloat16>(value, level_meta, loc, attw, out, B, N, Q, H, D, L, P, stream);
+  return launch<__nv_bfloat16>(value, level_meta, loc, attw, out, B, N, Q, H, D, L, P,
+                               kThreads, stream);
+}
+
+int msda_fwd_f32_block(const void* value, const void* level_meta, const void* loc,
+                       const void* attw, void* out, int B, int N, int Q, int H, int D,
+                       int L, int P, int threads, void* stream) {
+  return launch<float>(value, level_meta, loc, attw, out, B, N, Q, H, D, L, P, threads,
+                       stream);
+}
+
+int msda_fwd_bf16_block(const void* value, const void* level_meta, const void* loc,
+                        const void* attw, void* out, int B, int N, int Q, int H, int D,
+                        int L, int P, int threads, void* stream) {
+  return launch<__nv_bfloat16>(value, level_meta, loc, attw, out, B, N, Q, H, D, L, P,
+                               threads, stream);
 }
 
 int msda_bwd_f32(const void* value, const void* level_meta, const void* loc,

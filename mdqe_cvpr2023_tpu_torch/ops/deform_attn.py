@@ -16,7 +16,8 @@ differentiates it) and a CUDA tensor to ``MSDeformAttnFunction``, whose forward
 launches ``msda_fwd_*`` and whose backward launches ``msda_bwd_f32``; it never
 falls back. Each call site keeps its own forward launch count in ``LAUNCHES``
 and backward launch count in ``BWD_LAUNCHES``, raised only where the kernel is
-launched. ``msda_bwd_f32`` accumulates d(value) with fp32 atomics, so its
+launched. ``ms_deform_attn_cuda_block`` launches the forward kernel at a
+chosen block size for the kernel tools, counted in ``BLOCK_LAUNCHES``. ``msda_bwd_f32`` accumulates d(value) with fp32 atomics, so its
 summation order, and its last bits, vary from run to run.
 """
 from __future__ import annotations
@@ -30,11 +31,17 @@ from . import _build
 
 LAUNCHES = {"encoder": 0, "decoder_box": 0, "decoder_inst": 0}
 BWD_LAUNCHES = {"encoder": 0, "decoder_box": 0, "decoder_inst": 0}
+VALUE_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+BLOCK_THREADS = (64, 128, 256, 512)
+# launches of the block-size launchers (the kernel tools), per value type and
+# block size: "f32_t64" ... "bf16_t512"
+BLOCK_LAUNCHES = {f"{v}_t{t}": 0 for v in VALUE_DTYPES.values() for t in BLOCK_THREADS}
 
 
 def reset_launches() -> None:
-    """Zero the forward and the backward counts of every site."""
-    for counts in (LAUNCHES, BWD_LAUNCHES):
+    """Zero the forward and the backward counts of every site, and the block
+    launchers' counts."""
+    for counts in (LAUNCHES, BWD_LAUNCHES, BLOCK_LAUNCHES):
         for k in counts:
             counts[k] = 0
 
@@ -124,21 +131,22 @@ def _raise_on(lib, fn_name: str, err: int) -> None:
                            f"{lib.msda_error_string(err).decode()} ({err})")
 
 
-def ms_deform_attn_cuda(value, spatial_shapes: Sequence[Tuple[int, int]],
-                        sampling_locations, attention_weights,
-                        site: Optional[str] = None):
-    """Launch ``msda_fwd`` on the current stream. ``site`` names the call site
-    whose launch count goes up by one; comparisons pass ``None``."""
+def _fwd_launch(value, spatial_shapes, sampling_locations, attention_weights,
+                threads: Optional[int]):
+    """Launch the forward kernel on the current stream: ``msda_fwd_*`` (256
+    threads) when ``threads`` is None, else ``msda_fwd_*_block``."""
     shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
     B, N, Q, H, D, L, P = _check_kernel_inputs(value, shapes, sampling_locations,
                                                attention_weights)
-    if value.dtype == torch.float32:
-        fn_name = "msda_fwd_f32"
-    elif value.dtype == torch.bfloat16:
-        fn_name = "msda_fwd_bf16"
-    else:
+    if value.dtype not in VALUE_DTYPES:
         raise TypeError(f"value must be float32 or bfloat16, got {value.dtype}")
-
+    fn_name = f"msda_fwd_{VALUE_DTYPES[value.dtype]}"
+    extra = ()
+    if threads is not None:
+        if threads not in BLOCK_THREADS:
+            raise ValueError(f"block size {threads} not in {BLOCK_THREADS}")
+        fn_name += "_block"
+        extra = (threads,)
     lib = _build.load("ms_deform_attn")
     meta = _level_meta(shapes, str(value.device))
     out = torch.empty((B, Q, H * D), dtype=torch.float32, device=value.device)
@@ -146,10 +154,40 @@ def ms_deform_attn_cuda(value, spatial_shapes: Sequence[Tuple[int, int]],
     err = getattr(lib, fn_name)(value.data_ptr(), meta.data_ptr(),
                                 sampling_locations.data_ptr(),
                                 attention_weights.data_ptr(), out.data_ptr(),
-                                B, N, Q, H, D, L, P, stream)
+                                B, N, Q, H, D, L, P, *extra, stream)
     _raise_on(lib, fn_name, err)
+    return out
+
+
+def ms_deform_attn_cuda(value, spatial_shapes: Sequence[Tuple[int, int]],
+                        sampling_locations, attention_weights,
+                        site: Optional[str] = None):
+    """Launch ``msda_fwd`` on the current stream. ``site`` names the call site
+    whose launch count goes up by one; comparisons pass ``None``."""
+    out = _fwd_launch(value, spatial_shapes, sampling_locations, attention_weights,
+                      None)
     if site is not None:
         LAUNCHES[site] += 1
+    return out
+
+
+def block_variant(dtype: torch.dtype, threads: int) -> str:
+    """Key of ``BLOCK_LAUNCHES`` for a value type and block size."""
+    return f"{VALUE_DTYPES[dtype]}_t{threads}"
+
+
+def ms_deform_attn_cuda_block(value, spatial_shapes: Sequence[Tuple[int, int]],
+                              sampling_locations, attention_weights, threads: int,
+                              count: bool = True):
+    """The forward kernel at a block size of ``threads`` (one of
+    ``BLOCK_THREADS``), for the kernel tools (``tools/tune_deform_kernel.py``,
+    ``tools/probe_band_primitives.py``). Counts the launch in
+    ``BLOCK_LAUNCHES[block_variant(value.dtype, threads)]`` unless ``count``
+    is False (comparisons)."""
+    out = _fwd_launch(value, spatial_shapes, sampling_locations, attention_weights,
+                      threads)
+    if count:
+        BLOCK_LAUNCHES[block_variant(value.dtype, threads)] += 1
     return out
 
 

@@ -1,0 +1,147 @@
+"""What the kernel tools and chip_smoke.py measure with: the card's name and
+power limit, CUDA-event timing, the least time an H100 could take for a
+kernel's work (its bound), and the library yardsticks that compute the same
+functions (timed beside the kernels; no model path calls them).
+
+Peaks are those of one H100 SXM (NVIDIA's data sheet, dense): 3.35 TB/s of
+HBM3, 67 TFLOP/s fp32 outside the tensor cores, 989 TFLOP/s bf16 on the
+tensor cores. They assume the full 700 W power limit; ``card()`` reports the
+limit the card is set to.
+"""
+from __future__ import annotations
+
+import subprocess
+
+import torch
+
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
+BF16_TC_FLOP_PER_S = 989e12
+
+
+def card() -> str:
+    """``name, power.limit`` of card 0, as nvidia-smi gives them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader", "-i", "0"],
+                         capture_output=True, text=True)
+    if smi.returncode != 0:
+        raise RuntimeError(f"nvidia-smi failed: {smi.stderr.strip()}")
+    return smi.stdout.strip()
+
+
+def time_ms(fn, iters: int, warmup: int = 2) -> float:
+    """Milliseconds per call of ``fn`` on the card: CUDA events around
+    ``iters`` calls after ``warmup`` calls."""
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int, warmup: int = 2) -> float:
+    """Milliseconds per replay of ``fn`` captured once in a CUDA graph: the
+    device time of its launches without the host's cost of issuing them
+    (which bounds ``time_ms`` when a launch is shorter than its wrapper).
+    ``fn`` should launch uncounted: a replay runs no Python."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return time_ms(graph.replay, iters, warmup=1)
+
+
+def _bound(nbytes: float, flops: float, flop_per_s: float):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / flop_per_s * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def grid_sample_msda(value, shapes, loc, attw):
+    """Deformable attention in the reference's PyTorch oracle form: one
+    F.grid_sample per level on (B*H, D, h, w), then the weighted sum."""
+    F = torch.nn.functional
+    B, N, H, D = value.shape
+    _, Q, _, L, P, _ = loc.shape
+    value = value.float()
+    grids = 2 * loc - 1
+    outs, start = [], 0
+    for l, (h, w) in enumerate(shapes):
+        v = value[:, start:start + h * w].flatten(2).transpose(1, 2).reshape(B * H, D, h, w)
+        start += h * w
+        g = grids[:, :, :, l].transpose(1, 2).flatten(0, 1)           # (B*H, Q, P, 2)
+        outs.append(F.grid_sample(v, g, mode="bilinear", padding_mode="zeros",
+                                  align_corners=False))                # (B*H, D, Q, P)
+    a = attw.transpose(1, 2).reshape(B * H, 1, Q, L * P)
+    out = (torch.stack(outs, -2).flatten(-2) * a).sum(-1)
+    return out.view(B, H * D, Q).transpose(1, 2)
+
+
+def msda_taps(value, shapes, loc):
+    """(distinct value rows the in-range taps touch, number of in-range taps)."""
+    B, N, H, D = value.shape
+    b = torch.arange(B, device=loc.device).view(B, 1, 1, 1)
+    h = torch.arange(H, device=loc.device).view(1, 1, H, 1)
+    rows, taps, start = [], 0, 0
+    for l, (hl, wl) in enumerate(shapes):
+        x = loc[:, :, :, l, :, 0] * wl - 0.5
+        y = loc[:, :, :, l, :, 1] * hl - 0.5
+        x0, y0 = torch.floor(x).long(), torch.floor(y).long()
+        for cx, cy in ((x0, y0), (x0 + 1, y0), (x0, y0 + 1), (x0 + 1, y0 + 1)):
+            ok = (cx >= 0) & (cx < wl) & (cy >= 0) & (cy < hl)
+            taps += int(ok.sum())
+            rows.append((((b * N + start + cy * wl + cx) * H + h)[ok]).reshape(-1))
+        start += hl * wl
+    return int(torch.unique(torch.cat(rows)).numel()), taps
+
+
+def msda_bound(value, shapes, loc, attw):
+    """Least time of the forward on an H100: the larger of (bytes it must
+    move: the value rows its in-range taps touch, locations, weights, output)
+    over HBM bandwidth and (2*D flops per in-range tap) over fp32 peak.
+    Returns (ms, "bytes" or "operations", bytes)."""
+    B, N, H, D = value.shape
+    Q = loc.shape[1]
+    touched, taps = msda_taps(value, shapes, loc)
+    nbytes = (touched * D * value.element_size() + loc.numel() * 4
+              + attw.numel() * 4 + B * Q * H * D * 4)
+    ms, by = _bound(nbytes, 2.0 * D * taps, FP32_FLOP_PER_S)
+    return ms, by, nbytes
+
+
+def msda_bwd_bound(value, shapes, loc, attw):
+    """Least time of the backward on an H100: the larger of (bytes: the value
+    rows the in-range taps touch, read; d(value) written once in full;
+    locations, weights and the output gradient read; d(locations) and
+    d(weights) written) over HBM bandwidth and (8*D flops per in-range tap:
+    the sample, its two derivatives, the scattered product) over fp32 peak.
+    Returns (ms, bound_by, bytes, fp32 atomics: one per channel and in-range
+    tap, which may be what limits the kernel)."""
+    B, N, H, D = value.shape
+    Q = loc.shape[1]
+    touched, taps = msda_taps(value, shapes, loc)
+    nbytes = (touched * D * 4 + value.numel() * 4 + 2 * loc.numel() * 4
+              + 2 * attw.numel() * 4 + B * Q * H * D * 4)
+    ms, by = _bound(nbytes, 8.0 * D * taps, FP32_FLOP_PER_S)
+    return ms, by, nbytes, taps * D
+
+
+def tc_bound(M: int, N: int, K: int, reps: int):
+    """Least time of one tc_kdepth launch on an H100: the larger of
+    (2*M*N*K*reps flops) over the bf16 tensor-core peak and (A fp32, B bf16
+    read once, out fp32 written once) over HBM bandwidth. Returns (ms,
+    bound_by, flops)."""
+    flops = 2.0 * M * N * K * reps
+    nbytes = M * K * 4 + K * N * 2 + M * N * 4
+    ms, by = _bound(nbytes, flops, BF16_TC_FLOP_PER_S)
+    return ms, by, flops

@@ -67,3 +67,20 @@ def video_generalized_box_iou(out_bbox, tgt_bbox, valid=None):
         giou = torch.where(valid[..., None, :, :], giou, torch.zeros_like(giou))
         return giou.sum(-1) / valid.to(giou.dtype).sum(-1).clamp(min=1.0)[..., None, :]
     return giou.mean(-1)
+
+
+def masks_to_boxes(masks):
+    """Tight xyxy boxes in pixel units of binary masks (..., H, W) -> (..., 4)
+    fp32; zeros for empty masks."""
+    H, W = masks.shape[-2], masks.shape[-1]
+    any_y = masks.any(-1)                                   # (..., H)
+    any_x = masks.any(-2)                                   # (..., W)
+    ys = torch.arange(H, dtype=torch.float32, device=masks.device)
+    xs = torch.arange(W, dtype=torch.float32, device=masks.device)
+    big = torch.tensor(1e9, dtype=torch.float32, device=masks.device)
+    y0 = torch.where(any_y, ys, big).amin(-1)
+    y1 = torch.where(any_y, ys + 1.0, -big).amax(-1)
+    x0 = torch.where(any_x, xs, big).amin(-1)
+    x1 = torch.where(any_x, xs + 1.0, -big).amax(-1)
+    box = torch.stack([x0, y0, x1, y1], -1)
+    return torch.where(any_y.any(-1)[..., None], box, torch.zeros_like(box))

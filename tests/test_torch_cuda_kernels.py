@@ -1,6 +1,7 @@
-"""The port's CUDA deformable-attention kernels (forward, and backward against
-autograd of the plain version) against their plain PyTorch version, on the
-card.
+"""The port's CUDA kernels against their plain PyTorch versions, on the card:
+deformable attention (forward at every block size, and backward against
+autograd of the plain version) and the tensor-core product chain
+(``tc_kdepth``).
 
 These tests need an NVIDIA card with nvcc (the kernel has no CPU or interpret
 mode): they carry the ``cuda`` marker and skip where no card is present. They
@@ -13,6 +14,7 @@ import pytest
 import torch
 
 from mdqe_cvpr2023_tpu_torch.ops import deform_attn as da
+from mdqe_cvpr2023_tpu_torch.ops import tc_kdepth as tc
 
 torch.set_num_threads(2)
 
@@ -159,3 +161,69 @@ def test_backward_takes_noncontiguous_grad_and_rejects_bf16(cuda_device):
     with pytest.raises(TypeError, match="AMP"):
         da.ms_deform_attn_bwd_cuda(v.bfloat16(), shapes, lo, aw,
                                    torch.zeros(1, 10, 64, device=cuda_device))
+
+
+# Block-size launchers (the kernel tools): every block size and value type at
+# a tool-like level and at odd shapes, against the plain version; the same
+# tolerances as the 256-thread launchers.
+BLOCK_CASES = {
+    "tune_level": (2, 300, 4, 32, 4, ((12, 20),), "uniform"),
+    "odd_d48_q70": (2, 70, 3, 48, 3, ((10, 6), (3, 5)), "uniform"),
+    "encoder_like": (2, 639, 4, 32, 4, ((24, 20), (12, 10), (6, 5), (3, 3)), "local"),
+}
+
+
+@pytest.mark.parametrize("vdt", ["f32", "bf16"])
+@pytest.mark.parametrize("case", sorted(BLOCK_CASES))
+def test_block_size_launchers_match_plain(cuda_device, case, vdt):
+    B, Q, H, D, P, shapes, mode = BLOCK_CASES[case]
+    value, loc, attw = _inputs(B, Q, H, D, P, shapes, mode, seed=4)
+    v = torch.from_numpy(value).to(cuda_device)
+    if vdt == "bf16":
+        v = v.to(torch.bfloat16)
+    lo = torch.from_numpy(loc).to(cuda_device)
+    aw = torch.from_numpy(attw).to(cuda_device)
+    want = da.ms_deform_attn_plain(v, shapes, lo, aw)
+    da.reset_launches()
+    for t in da.BLOCK_THREADS:
+        got = da.ms_deform_attn_cuda_block(v, shapes, lo, aw, t)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-3 if vdt == "bf16" else 1e-4)
+    assert all(da.BLOCK_LAUNCHES[da.block_variant(v.dtype, t)] == 1
+               for t in da.BLOCK_THREADS)
+    assert sum(da.BLOCK_LAUNCHES.values()) == len(da.BLOCK_THREADS)
+    assert sum(da.LAUNCHES.values()) == 0
+    with pytest.raises(ValueError):
+        da.ms_deform_attn_cuda_block(v, shapes, lo, aw, 96)
+
+
+# tc_kdepth: (M, N, K). Products of bf16 values are exact in fp32; only the
+# order of the sums differs: relative 1e-4 of the largest |out|.
+TC_CASES = {"k16": (256, 128, 16), "k48_ragged_m": (100, 72, 48), "k256": (192, 264, 256)}
+
+
+@pytest.mark.parametrize("case", sorted(TC_CASES))
+def test_tc_kdepth_matches_plain(cuda_device, case):
+    M, N, K = TC_CASES[case]
+    rng = np.random.default_rng(len(case))
+    a = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32)).to(cuda_device)
+    b = torch.from_numpy(rng.standard_normal((K, N)).astype(np.float32)).to(cuda_device)
+    b = b.to(torch.bfloat16)
+    tc.reset_launches()
+    got = tc.tc_kdepth_cuda(a, b, 48)
+    want = tc.tc_kdepth_plain(a, b, 48)
+    torch.cuda.synchronize()
+    assert got.shape == (M, N) and got.dtype == torch.float32
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+    assert tc.LAUNCHES == {tc.shape_key(K, N): 1}
+
+
+def test_tc_kdepth_rejects_bad_shapes(cuda_device):
+    a = torch.zeros(64, 24, device=cuda_device)
+    b = torch.zeros(24, 64, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        tc.tc_kdepth_cuda(a, b, 4)                       # K % 16
+    with pytest.raises(ValueError):
+        tc.tc_kdepth_cuda(a[:, :16], b[:16, :60], 4)    # N % 8
+    with pytest.raises(TypeError):
+        tc.tc_kdepth_cuda(a[:, :16], b[:16].float(), 4)
