@@ -4,8 +4,9 @@
 Phases (each exits non-zero on failure; none is caught and continued):
   1. device: the card's name and power limit;
   2. build: compile the CUDA kernels from the checkout with nvcc (sm_90a), one
-     nvcc per source started together (ms_deform_attn.cu, tc_kdepth.cu), and
-     print ptxas's register / shared-memory / spill report;
+     nvcc per source started together (ms_deform_attn.cu, tc_kdepth.cu),
+     print ptxas's register / shared-memory / spill report, and check that
+     tc_kdepth's SASS holds wgmma (HGMMA) and no mma.sync (HMMA);
   3. the forward kernel against its plain PyTorch version at every call shape
      of the inference path (encoder, decoder box level, decoder temporal) and
      at odd shapes; the backward kernel against autograd of the plain version,
@@ -16,10 +17,11 @@ Phases (each exits non-zero on failure; none is caught and continued):
      problems and the COCO encoder's shape; the gather probe against the
      tool's oracle at every problem it times; tc_kdepth against its plain
      version at every (K, N) of the depth sweep;
-  4. kernel timing (CUDA events), forward (inference, training and COCO
-     shapes) and backward (training shapes), beside the plain version, the
-     grid_sample composition (a yardstick the port never calls) and the least
-     time the card could take for the same work;
+  4. kernel timing (CUDA events, and CUDA-graph replay for the forward),
+     forward (inference, training and COCO shapes) and backward (training
+     shapes), beside the plain version, the grid_sample composition (a
+     yardstick the port never calls) and the least time the card could take
+     for the same work;
   5. windowed VIS inference (inference_vis) at full width (R50, hidden 256,
      6+6 layers, 196 queries, 4-frame clips, 30-frame windows, 360x640) on a
      36-frame synthetic video with random weights from a seed: launch counts
@@ -43,6 +45,8 @@ Phases (each exits non-zero on failure; none is caught and continued):
   8. the kernel list as one JSON line; the card line; the result line.
 
 Usage: python3 chip_smoke.py   (needs one CUDA card; runs from the checkout)
+       python3 chip_smoke.py --kernel-times   (only the kernels' times at every
+       forward site and tc_kdepth shape, one JSON line each; see kernel_times)
 """
 import dataclasses
 import json
@@ -67,6 +71,14 @@ COCO_N = sum(h * w for h, w in COCO_SHAPES)               # 20197 encoder tokens
 PALLAS = "mdqe_cvpr2023_tpu/ops/deform_attn_pallas.py"
 SOURCE = "mdqe_cvpr2023_tpu_torch/ops/csrc/ms_deform_attn.cu"
 TC_SOURCE = "mdqe_cvpr2023_tpu_torch/ops/csrc/tc_kdepth.cu"
+# the forward kernel's timed VIS call sites: B, Q, H, D, P, shapes, loc mode,
+# value type, line of the TPU kernel replaced (_deform_attn_banded for the
+# encoder, _deform_attn_fused otherwise)
+VIS_SITES = {
+    "encoder": (10, 5100, 8, 32, 4, ENC_SHAPES, "local", torch.bfloat16, 569),
+    "decoder_box": (32, 196, 8, 32, 4, ENC_SHAPES, "uniform", torch.float32, 121),
+    "decoder_inst": (8, 196, 8, 32, 4, ((48, 80),) * 4, "uniform", torch.float32, 121),
+}
 
 
 def fail(msg):
@@ -199,12 +211,14 @@ def time_backward(torch, da):
               f"{atomics / 1e6:.2f} M fp32 atomics | {bound_ms / ms:.1%} of bound",
               flush=True)
         f_ms = measure.time_ms(lambda: da.ms_deform_attn_cuda(v, shapes, lo, aw), 20)
+        f_dev = measure.graph_ms(lambda: da.ms_deform_attn_cuda(v, shapes, lo, aw), 20)
         f_plain = measure.time_ms(lambda: da.ms_deform_attn_plain(v, shapes, lo, aw), 3)
         f_lib = measure.time_ms(lambda: measure.grid_sample_msda(v, shapes, lo, aw), 3)
         f_bound, f_by, f_bytes = measure.msda_bound(v, shapes, lo, aw)
         fwd_timings[site] = dict(ms=f_ms, plain_ms=f_plain, library_ms=f_lib,
                                  bound_ms=f_bound, bound_by=f_by)
-        print(f"fwd {site:12s} B={B} Q={Q} float32  kernel {f_ms:.4f} ms | plain "
+        print(f"fwd {site:12s} B={B} Q={Q} float32  kernel {f_ms:.4f} ms (graph replay "
+              f"{f_dev:.4f} ms) | plain "
               f"{f_plain:.3f} ms | grid_sample form {f_lib:.3f} ms | bound "
               f"{f_bound * 1e3:.1f} us by {f_by} ({f_bytes / 1e6:.1f} MB) | "
               f"{f_bound / f_ms:.1%} of bound", flush=True)
@@ -368,6 +382,26 @@ def check_outputs(out, n_frames, hw, num_classes):
     for m in out["pred_masks"]:
         if m.shape != (n_frames,) + tuple(hw) or m.dtype != bool:
             fail(f"mask of shape {m.shape} {m.dtype}, want {(n_frames,) + tuple(hw)} bool")
+
+
+def check_wgmma(_build):
+    """tc_kdepth must run on Hopper's warpgroup products: its library's SASS
+    (cuobjdump) holds HGMMA instructions and no mma.sync (HMMA), and ptxas did
+    not serialize them (its C7513 note: a wait after every wgmma)."""
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(_build.build("tc_kdepth"))],
+                          capture_output=True, text=True)
+    if sass.returncode != 0:
+        fail(f"cuobjdump failed: {sass.stderr.strip()}")
+    lines = sass.stdout.splitlines()
+    hgmma = sum("HGMMA" in ln for ln in lines)
+    hmma = sum("HMMA" in ln and "HGMMA" not in ln for ln in lines)
+    print(f"tc_kdepth SASS: {hgmma} HGMMA, {hmma} HMMA instructions", flush=True)
+    if hgmma == 0 or hmma:
+        fail("tc_kdepth is not built on wgmma (no HGMMA in its SASS)")
+    if "C7513" in _build.ptxas_report("tc_kdepth"):
+        fail("ptxas serialized tc_kdepth's wgmma instructions (C7513)")
 
 
 def sig(x):
@@ -744,7 +778,8 @@ def tool_paths(da, tdk, pbp, pmk):
               f"{r['us_per_product']:.2f} us/product | cuBLAS stacked "
               f"{r['cublas_stacked_ms']:.4f} ms ({r['cublas_stacked_tflop_per_s']:.1f} "
               f"TFLOP/s), one product {r['library_ms']:.4f} ms "
-              f"({r['library_tflop_per_s']:.1f} TFLOP/s) | plain {r['plain_ms']:.3f} ms",
+              f"({r['library_tflop_per_s']:.1f} TFLOP/s; graph replay "
+              f"{r['library_device_ms']:.4f} ms) | plain {r['plain_ms']:.3f} ms",
               flush=True)
     print(f"tc_kdepth launches {json.dumps(tc_launches)}", flush=True)
     if len(tc_launches) != len(tc_rows) or min(tc_launches.values()) == 0:
@@ -752,9 +787,62 @@ def tool_paths(da, tdk, pbp, pmk):
     return tune_rows, probe_rows, tc_rows, tc_launches
 
 
+def fwd_sites():
+    """Every timed call site of the forward kernel, on the timing phases'
+    inputs: (name, [(shapes, value, locations, weights), ...]); the COCO
+    temporal site has one problem per pyramid level."""
+    for k, (site, (B, Q, H, D, P, shapes, mode, vdt, _)) in enumerate(VIS_SITES.items()):
+        yield f"vis_{site}", [(shapes, *make_inputs(torch, B, Q, H, D, P, shapes, mode, vdt,
+                                                    seed=100 + k))]
+    for k, (site, B, Q, H, D, P, shapes, mode) in enumerate(BWD_CHECKS[:3]):
+        yield f"train_{site}", [(shapes, *make_inputs(torch, B, Q, H, D, P, shapes, mode,
+                                                      torch.float32, seed=300 + k))]
+    for site in ("encoder", "decoder_box", "decoder_inst"):
+        yield f"coco_{site}", coco_site_inputs(site)
+
+
+def kernel_times():
+    """``--kernel-times``: the kernels' times alone, one JSON line each: the
+    forward kernel at every site of ``fwd_sites`` (ms per launch from CUDA
+    events, wrapper included, and from a CUDA-graph replay; and by graph
+    replay at every block size of ``msda_fwd_*_block``) and tc_kdepth at
+    every (K, N) of the depth sweep (graph replay). It calls only wrappers that
+    every checkout of the port has, so a copy of this script placed in another
+    checkout (the parent commit's) times that checkout's kernels on the same
+    inputs: run the two in turns (A, B, B, A) on one card."""
+    from mdqe_cvpr2023_tpu_torch.ops import deform_attn as da
+    from mdqe_cvpr2023_tpu_torch.ops import tc_kdepth as tc
+    from mdqe_cvpr2023_tpu_torch.tools import probe_mxu_kdepth as pmk
+    card = measure.card()
+    for name, problems in fwd_sites():
+        eager, graph, blocks = [], [], {t: [] for t in da.BLOCK_THREADS}
+        for shapes, v, lo, aw in problems:
+            eager.append(measure.time_ms(lambda: da.ms_deform_attn_cuda(v, shapes, lo, aw), 50))
+            graph.append(measure.graph_ms(lambda: da.ms_deform_attn_cuda(v, shapes, lo, aw), 50))
+            for t in da.BLOCK_THREADS:
+                blocks[t].append(measure.graph_ms(lambda: da.ms_deform_attn_cuda_block(
+                    v, shapes, lo, aw, t, count=False), 50))
+        del problems
+        print(json.dumps({"kernel": "msda_fwd", "site": name, "eager_ms": np.mean(eager),
+                          "graph_ms": np.mean(graph),
+                          "block_graph_ms": {t: np.mean(ms) for t, ms in blocks.items()},
+                          "card": card}), flush=True)
+    for N in pmk.NS:
+        for K in pmk.KS:
+            a, b = pmk.operands(K, N)
+            ms = measure.graph_ms(lambda: tc.tc_kdepth_cuda(a, b, pmk.REPS, count=False), 50)
+            print(json.dumps({"kernel": "tc_kdepth", "K": K, "N": N, "graph_ms": ms,
+                              "card": card}), flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a CUDA card")
+    if sys.argv[1:] == ["--kernel-times"]:
+        kernel_times()
+        return
+    if sys.argv[1:]:
+        fail(f"unknown arguments {sys.argv[1:]}: run with none, or with --kernel-times")
     from mdqe_cvpr2023_tpu_torch.ops import _build
     from mdqe_cvpr2023_tpu_torch.ops import deform_attn as da
     from mdqe_cvpr2023_tpu_torch.models import meta
@@ -782,6 +870,7 @@ def main():
     print(f"nvcc build {time.perf_counter() - t0:.1f} s (sm_90a)")
     for name in ("ms_deform_attn", "tc_kdepth"):
         print(_build.ptxas_report(name).strip(), flush=True)
+    check_wgmma(_build)
 
     # ---- 3. kernel against plain -------------------------------------------
     phase("kernel against plain version")
@@ -826,19 +915,12 @@ def main():
 
     # ---- 4. kernel timing ----------------------------------------------------
     phase(f"kernel timing ({card})")
-    timing_shapes = {
-        # site: shapes, loc mode, value type, line of the TPU kernel replaced
-        # (_deform_attn_banded for the encoder, _deform_attn_fused otherwise)
-        "encoder": (10, 5100, 8, 32, 4, ENC_SHAPES, "local", torch.bfloat16, 569),
-        "decoder_box": (32, 196, 8, 32, 4, ENC_SHAPES, "uniform", torch.float32, 121),
-        "decoder_inst": (8, 196, 8, 32, 4, ((48, 80),) * 4, "uniform", torch.float32,
-                         121),
-    }
     timings = {}
-    for k, (site, spec) in enumerate(timing_shapes.items()):
+    for k, (site, spec) in enumerate(VIS_SITES.items()):
         B, Q, H, D, P, shapes, mode, vdt, line = spec
         v, lo, aw = make_inputs(torch, B, Q, H, D, P, shapes, mode, vdt, seed=100 + k)
         ms = measure.time_ms(lambda: da.ms_deform_attn_cuda(v, shapes, lo, aw), 50)
+        dev_ms = measure.graph_ms(lambda: da.ms_deform_attn_cuda(v, shapes, lo, aw), 50)
         plain_ms = measure.time_ms(lambda: da.ms_deform_attn_plain(v, shapes, lo, aw), 5)
         lib_ms = measure.time_ms(lambda: measure.grid_sample_msda(v, shapes, lo, aw), 5)
         lib_err = float((measure.grid_sample_msda(v, shapes, lo, aw)
@@ -847,7 +929,8 @@ def main():
         timings[site] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                              bound_ms=bound_ms, bound_by=bound_by,
                              replaces=f"{PALLAS}:{line}")
-        print(f"{site:12s} B={B} Q={Q} {str(vdt)[6:]:8s} kernel {ms:.4f} ms | plain "
+        print(f"{site:12s} B={B} Q={Q} {str(vdt)[6:]:8s} kernel {ms:.4f} ms (graph replay "
+              f"{dev_ms:.4f} ms) | plain "
               f"{plain_ms:.3f} ms | grid_sample form {lib_ms:.3f} ms "
               f"(max|diff| {lib_err:.1e}) | bound {bound_ms * 1e3:.1f} us by "
               f"{bound_by} ({nbytes / 1e6:.1f} MB) | {bound_ms / ms:.1%} of bound",

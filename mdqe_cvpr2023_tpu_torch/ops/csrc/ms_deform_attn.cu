@@ -34,12 +34,39 @@
 //   grad_loc    (B, Q, H, L, P, 2)  fp32
 //   grad_attw   (B, Q, H, L, P)     fp32
 //
-// Design (both directions): one warp per (b, q, head), lane = channel (two
-// channels per lane when 32 < D <= 64). Each tap reads one contiguous row of D
-// channels of value (64 B in bf16, 128 B in fp32): one coalesced transaction
-// per warp. The lanes load the L*P (x, y, weight) triples of their query
-// cooperatively, 32 at a time, and broadcast them with warp shuffles. Sums are
-// in fp32.
+// Forward design: one thread per (b, q, head, group of 8 channels), so G = D / 8
+// threads serve one (q, head) (4 at D = 32) and a 32-thread warp serves
+// 32 / G pairs (8 at D = 32): the heads of one query, side by side (on the
+// H100 this order was 1.6% faster at the VIS encoder's shape than
+// neighbouring queries of one head, so it is the only one kept).
+// Each tap of a thread is one 16-byte vector load of 8 channels (bf16: one
+// uint4, widened to fp32 exactly by a shift; fp32: two float4), accumulated
+// into 8 fp32 sums; the output is two float4 stores. Levels are the outer
+// loop ((h, w, start) read once per level from shared memory, no division),
+// points the inner loop, unrolled by 4 (bf16) or 2 (fp32) so that the 16 (8)
+// taps' loads are issued before the FMAs that consume them. A (q, head)'s
+// L*P locations and weights are contiguous: read as float4 / float2 vectors
+// when P is a multiple of the unroll (the addresses are then 16- / 8-byte
+// aligned), else point by point. An out-of-range corner gets weight 0 and no
+// load (a predicated load, no branch: the lanes of a warp serve different
+// (q, head), so a `continue` would diverge). Requires D % 8 == 0, D <= 64,
+// and 16-byte aligned value, locations, weights and output (the wrapper
+// checks); N * H * D < 2^31.
+//
+// Why: the earlier design (one warp per (b, q, head), lane = channel) repeated
+// every point's coordinate work (shuffles, an integer division, clamps,
+// floors, four bounds tests, weights and addresses: ~100 warp-instructions a
+// point) on all 32 lanes for one 2-byte load and one FMA a lane, and walked
+// a warp's points one after another; it ran at 3-6% of its byte bound,
+// bf16 no faster than fp32 and block size no lever: bound by instruction
+// issue and load latency, not bytes. Here the coordinate work per useful FMA
+// falls by 32 / G (8x at D = 32) and each thread keeps 4-8 taps in flight.
+//
+// Backward design: one warp per (b, q, head), lane = channel (two channels
+// per lane when 32 < D <= 64). Each tap reads one contiguous row of D
+// channels of value (128 B in fp32): one coalesced transaction per warp. The
+// lanes load the L*P (x, y, weight) triples of their query cooperatively, 32
+// at a time, and broadcast them with warp shuffles. Sums are in fp32.
 //
 // Backward: per (level, point) the warp recomputes the four taps and forms,
 // per lane, g[d] * v[d] for its channels; three warp reductions (xor shuffles)
@@ -56,13 +83,14 @@
 // an H100; its least time is the bytes it must move (value rows touched,
 // locations, weights, output) over the 3.35 TB/s of HBM. The backward moves
 // those rows twice (read, and atomically written into d(value)) and its atomics
-// may well be what limits it. Adjacent warps of a block serve the heads of one
-// query, so their location reads are contiguous. TMA, wgmma, locality-ordered
-// tiling and a deterministic segmented reduction for d(value) are left for
-// later work.
+// and replicated per-lane coordinate work may well be what limit it; it keeps
+// the warp-per-(q, head) design for now.
 //
 // Block size: the forward kernel is a template over its block size. The main
-// paths launch 256 threads (msda_fwd_f32, msda_fwd_bf16); msda_fwd_*_block
+// paths launch 128 threads (msda_fwd_f32, msda_fwd_bf16): on the H100 that
+// was the fastest or within 7% of it at every main-path site (the fp32
+// encoders prefer 256-512), and ptxas fits it in 64-70 registers without
+// spills; msda_fwd_*_block
 // take 64, 128, 256 or 512 threads for the tuning sweep
 // (mdqe_cvpr2023_tpu_torch/tools/tune_deform_kernel.py), the Hopper
 // counterpart of the TPU kernel's query-tile sweep in
@@ -75,95 +103,153 @@
 namespace {
 
 constexpr int kMaxLevels = 32;
-constexpr int kThreads = 256;  // the main paths' block size (and the backward's)
+constexpr int kFwdThreads = 128;  // the main paths' forward block size
+constexpr int kThreads = 256;     // the backward's block size
 constexpr int kWarpsPerBlock = kThreads / 32;
 
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+// 8 channels of one value row, as loaded.
+template <typename T> struct Vec8;
+template <> struct Vec8<float> { float4 lo, hi; };
+template <> struct Vec8<__nv_bfloat16> { uint4 u; };
 
-template <typename T, int kChunks, int kBlock>
+__device__ __forceinline__ void load8(Vec8<float>& v, const float* p) {
+  v.lo = __ldg(reinterpret_cast<const float4*>(p));
+  v.hi = __ldg(reinterpret_cast<const float4*>(p) + 1);
+}
+__device__ __forceinline__ void load8(Vec8<__nv_bfloat16>& v, const __nv_bfloat16* p) {
+  v.u = __ldg(reinterpret_cast<const uint4*>(p));
+}
+__device__ __forceinline__ void zero8(Vec8<float>& v) {
+  v.lo = make_float4(0.f, 0.f, 0.f, 0.f);
+  v.hi = v.lo;
+}
+__device__ __forceinline__ void zero8(Vec8<__nv_bfloat16>& v) { v.u = make_uint4(0u, 0u, 0u, 0u); }
+
+__device__ __forceinline__ void fma8(float (&acc)[8], float w, const Vec8<float>& v) {
+  acc[0] += w * v.lo.x;
+  acc[1] += w * v.lo.y;
+  acc[2] += w * v.lo.z;
+  acc[3] += w * v.lo.w;
+  acc[4] += w * v.hi.x;
+  acc[5] += w * v.hi.y;
+  acc[6] += w * v.hi.z;
+  acc[7] += w * v.hi.w;
+}
+// bf16 -> fp32 is exact: the bf16 bits are the fp32's high half.
+__device__ __forceinline__ void fma_pair(float& a0, float& a1, float w, uint32_t bits) {
+  a0 += w * __uint_as_float(bits << 16);
+  a1 += w * __uint_as_float(bits & 0xffff0000u);
+}
+__device__ __forceinline__ void fma8(float (&acc)[8], float w, const Vec8<__nv_bfloat16>& v) {
+  fma_pair(acc[0], acc[1], w, v.u.x);
+  fma_pair(acc[2], acc[3], w, v.u.y);
+  fma_pair(acc[4], acc[5], w, v.u.z);
+  fma_pair(acc[6], acc[7], w, v.u.w);
+}
+
+// Points unrolled per step: 4 taps each, so 16 (bf16) or 8 (fp32) 16-byte
+// loads are issued together; fp32 holds two float4 a tap.
+template <typename T> struct PointUnroll { static constexpr int value = 4; };
+template <> struct PointUnroll<float> { static constexpr int value = 2; };
+
+template <typename T, int kBlock>
 __global__ void __launch_bounds__(kBlock) msda_fwd_kernel(
     const T* __restrict__ value, const int* __restrict__ level_meta,
     const float* __restrict__ loc, const float* __restrict__ attw,
     float* __restrict__ out, int B, int N, int Q, int H, int D, int L, int P) {
-  __shared__ int s_h[kMaxLevels];
-  __shared__ int s_w[kMaxLevels];
-  __shared__ int s_start[kMaxLevels];
-  for (int i = threadIdx.x; i < L; i += blockDim.x) {
-    s_h[i] = level_meta[3 * i];
-    s_w[i] = level_meta[3 * i + 1];
-    s_start[i] = level_meta[3 * i + 2];
-  }
+  constexpr int kPU = PointUnroll<T>::value;
+  __shared__ int s_meta[3 * kMaxLevels];  // h, w, start of each level
+  for (int i = threadIdx.x; i < 3 * L; i += kBlock) s_meta[i] = level_meta[i];
   __syncthreads();
 
-  const int64_t item = (int64_t)blockIdx.x * (kBlock / 32) + (threadIdx.x >> 5);
-  const int64_t total = (int64_t)B * Q * H;
-  if (item >= total) return;  // whole warps exit; no barrier follows
-  const int lane = threadIdx.x & 31;
+  const int G = D >> 3;  // threads per (b, q, head)
+  const int64_t t = (int64_t)blockIdx.x * kBlock + threadIdx.x;
+  if (t >= (int64_t)B * Q * H * G) return;  // no barrier follows
+  const int g = (int)(t % G);
+  const int64_t item = t / G;  // (b, q, head): row of loc, attw and out
   const int h = (int)(item % H);
   const int64_t b = item / H / Q;
   const int LP = L * P;
-  const int64_t row_stride = (int64_t)H * D;  // elements between pixels
-
+  const int row_stride = H * D;  // elements between pixels
+  const T* v_bh = value + b * (int64_t)N * row_stride + h * D + 8 * g;
   const float* loc_i = loc + item * LP * 2;
   const float* aw_i = attw + item * LP;
-  const T* v_bh = value + b * (int64_t)N * row_stride + (int64_t)h * D;
+  const bool vec = P % kPU == 0;  // then the chunks' vectors are aligned
 
-  float acc[kChunks];
+  float acc[8];
 #pragma unroll
-  for (int k = 0; k < kChunks; ++k) acc[k] = 0.f;
+  for (int k = 0; k < 8; ++k) acc[k] = 0.f;
 
-  for (int base = 0; base < LP; base += 32) {
-    const int i = base + lane;
-    float lx = 0.f, ly = 0.f, la = 0.f;
-    if (i < LP) {
-      lx = loc_i[2 * i];
-      ly = loc_i[2 * i + 1];
-      la = aw_i[i];
-    }
-    const int n = min(32, LP - base);
-    for (int j = 0; j < n; ++j) {
-      const float px = __shfl_sync(0xffffffffu, lx, j);
-      const float py = __shfl_sync(0xffffffffu, ly, j);
-      const float a = __shfl_sync(0xffffffffu, la, j);
-      const int l = (base + j) / P;
-      const int hl = s_h[l];
-      const int wl = s_w[l];
-      float x = __fmul_rn(px, (float)wl) - 0.5f;
-      float y = __fmul_rn(py, (float)hl) - 0.5f;
-      // Far outside the level every corner is out of range either way; the
-      // clamp only keeps the int conversion below defined.
-      x = fminf(fmaxf(x, -2.f), (float)wl + 1.f);
-      y = fminf(fmaxf(y, -2.f), (float)hl + 1.f);
-      const float x0f = floorf(x);
-      const float y0f = floorf(y);
-      const int x0 = (int)x0f;
-      const int y0 = (int)y0f;
-      const float fx = x - x0f;
-      const float fy = y - y0f;
-      const T* v_l = v_bh + (int64_t)s_start[l] * row_stride;
+  for (int l = 0; l < L; ++l) {
+    const int hl = s_meta[3 * l];
+    const int wl = s_meta[3 * l + 1];
+    const T* v_l = v_bh + (int64_t)s_meta[3 * l + 2] * row_stride;
+    for (int p0 = 0; p0 < P; p0 += kPU) {
+      const float* lp = loc_i + 2 * (l * P + p0);
+      const float* ap = aw_i + l * P + p0;
+      float px[kPU], py[kPU], a[kPU];
+      if (vec) {
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int cx = x0 + (c & 1);
-        const int cy = y0 + (c >> 1);
-        if (cx < 0 || cx >= wl || cy < 0 || cy >= hl) continue;  // warp-uniform
-        const float wc = a * ((c & 1) ? fx : 1.f - fx) * ((c >> 1) ? fy : 1.f - fy);
-        const T* row = v_l + ((int64_t)cy * wl + cx) * row_stride;
+        for (int u = 0; u < kPU; u += 2) {
+          const float4 xy = __ldg(reinterpret_cast<const float4*>(lp + 2 * u));
+          const float2 w2 = __ldg(reinterpret_cast<const float2*>(ap + u));
+          px[u] = xy.x;
+          py[u] = xy.y;
+          px[u + 1] = xy.z;
+          py[u + 1] = xy.w;
+          a[u] = w2.x;
+          a[u + 1] = w2.y;
+        }
+      } else {
 #pragma unroll
-        for (int k = 0; k < kChunks; ++k) {
-          const int d = lane + 32 * k;
-          if (d < D) acc[k] += wc * to_float(row[d]);
+        for (int u = 0; u < kPU; ++u) {
+          // a point past P lands far outside the level: no corner is in range
+          const bool in = p0 + u < P;
+          px[u] = in ? __ldg(lp + 2 * u) : -1.f;
+          py[u] = in ? __ldg(lp + 2 * u + 1) : -1.f;
+          a[u] = in ? __ldg(ap + u) : 0.f;
         }
       }
+      Vec8<T> v[kPU][4];
+      float wc[kPU][4];
+#pragma unroll
+      for (int u = 0; u < kPU; ++u) {
+        float x = __fmul_rn(px[u], (float)wl) - 0.5f;
+        float y = __fmul_rn(py[u], (float)hl) - 0.5f;
+        // Far outside the level every corner is out of range either way; the
+        // clamp only keeps the int conversion below defined.
+        x = fminf(fmaxf(x, -2.f), (float)wl + 1.f);
+        y = fminf(fmaxf(y, -2.f), (float)hl + 1.f);
+        const float x0f = floorf(x);
+        const float y0f = floorf(y);
+        const int x0 = (int)x0f;
+        const int y0 = (int)y0f;
+        const float fx = x - x0f;
+        const float fy = y - y0f;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int cx = x0 + (c & 1);
+          const int cy = y0 + (c >> 1);
+          const bool ok = cx >= 0 && cx < wl && cy >= 0 && cy < hl;
+          wc[u][c] = ok ? a[u] * ((c & 1) ? fx : 1.f - fx) * ((c >> 1) ? fy : 1.f - fy)
+                        : 0.f;
+          if (ok) {
+            load8(v[u][c], v_l + (cy * wl + cx) * row_stride);
+          } else {
+            zero8(v[u][c]);
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kPU; ++u)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) fma8(acc, wc[u][c], v[u][c]);
     }
   }
 
-  float* o = out + item * D;
-#pragma unroll
-  for (int k = 0; k < kChunks; ++k) {
-    const int d = lane + 32 * k;
-    if (d < D) o[d] = acc[k];
-  }
+  float4* o = reinterpret_cast<float4*>(out + item * D + 8 * g);
+  o[0] = make_float4(acc[0], acc[1], acc[2], acc[3]);
+  o[1] = make_float4(acc[4], acc[5], acc[6], acc[7]);
 }
 
 
@@ -288,16 +374,11 @@ __global__ void __launch_bounds__(kThreads) msda_bwd_kernel(
 template <typename T, int kBlock>
 int launch_fwd(const T* v, const int* m, const float* lo, const float* aw, float* o,
                int B, int N, int Q, int H, int D, int L, int P, cudaStream_t s) {
-  const int64_t total = (int64_t)B * Q * H;
-  const int64_t blocks = (total + kBlock / 32 - 1) / (kBlock / 32);
+  const int64_t total = (int64_t)B * Q * H * (D / 8);
+  const int64_t blocks = (total + kBlock - 1) / kBlock;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  if (D <= 32) {
-    msda_fwd_kernel<T, 1, kBlock><<<(unsigned)blocks, kBlock, 0, s>>>(
-        v, m, lo, aw, o, B, N, Q, H, D, L, P);
-  } else {
-    msda_fwd_kernel<T, 2, kBlock><<<(unsigned)blocks, kBlock, 0, s>>>(
-        v, m, lo, aw, o, B, N, Q, H, D, L, P);
-  }
+  msda_fwd_kernel<T, kBlock><<<(unsigned)blocks, kBlock, 0, s>>>(
+      v, m, lo, aw, o, B, N, Q, H, D, L, P);
   return (int)cudaGetLastError();
 }
 
@@ -306,7 +387,8 @@ template <typename T>
 int launch(const void* value, const void* level_meta, const void* loc,
            const void* attw, void* out, int B, int N, int Q, int H, int D,
            int L, int P, int threads, void* stream) {
-  if (L < 1 || L > kMaxLevels || D < 1 || D > 64 || P < 1) {
+  if (L < 1 || L > kMaxLevels || D < 8 || D > 64 || D % 8 != 0 || P < 1 ||
+      (int64_t)N * H * D > 0x7fffffffLL) {
     return (int)cudaErrorInvalidValue;
   }
   if ((int64_t)B * Q * H == 0) return (int)cudaSuccess;
@@ -362,7 +444,7 @@ extern "C" {
 int msda_fwd_f32(const void* value, const void* level_meta, const void* loc,
                  const void* attw, void* out, int B, int N, int Q, int H, int D,
                  int L, int P, void* stream) {
-  return launch<float>(value, level_meta, loc, attw, out, B, N, Q, H, D, L, P, kThreads,
+  return launch<float>(value, level_meta, loc, attw, out, B, N, Q, H, D, L, P, kFwdThreads,
                        stream);
 }
 
@@ -370,7 +452,7 @@ int msda_fwd_bf16(const void* value, const void* level_meta, const void* loc,
                   const void* attw, void* out, int B, int N, int Q, int H, int D,
                   int L, int P, void* stream) {
   return launch<__nv_bfloat16>(value, level_meta, loc, attw, out, B, N, Q, H, D, L, P,
-                               kThreads, stream);
+                               kFwdThreads, stream);
 }
 
 int msda_fwd_f32_block(const void* value, const void* level_meta, const void* loc,

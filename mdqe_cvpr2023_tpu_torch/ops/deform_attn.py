@@ -17,8 +17,11 @@ launches ``msda_fwd_*`` and whose backward launches ``msda_bwd_f32``; it never
 falls back. Each call site keeps its own forward launch count in ``LAUNCHES``
 and backward launch count in ``BWD_LAUNCHES``, raised only where the kernel is
 launched. ``ms_deform_attn_cuda_block`` launches the forward kernel at a
-chosen block size for the kernel tools, counted in ``BLOCK_LAUNCHES``. ``msda_bwd_f32`` accumulates d(value) with fp32 atomics, so its
-summation order, and its last bits, vary from run to run.
+chosen block size for the kernel tools, counted in
+``BLOCK_LAUNCHES``. ``msda_bwd_f32`` accumulates d(value) with fp32 atomics, so
+its summation order, and its last bits, vary from run to run. The kernels take
+D % 8 == 0, D <= 64, L <= 32 and 16-byte aligned inputs
+(``_check_kernel_inputs``); the outputs are allocated here.
 """
 from __future__ import annotations
 
@@ -97,7 +100,11 @@ def _level_meta(spatial_shapes: Tuple[Tuple[int, int], ...], device: str):
 
 
 def _check_kernel_inputs(value, shapes, sampling_locations, attention_weights):
-    """Raise on what the kernels do not take; returns (B, N, Q, H, D, L, P)."""
+    """Raise on what the kernels do not take; returns (B, N, Q, H, D, L, P).
+    The forward kernel reads 8 channels with one 16-byte vector load, so D
+    must be a multiple of 8 (and at most 64) and every tensor 16-byte aligned
+    (a contiguous view at an offset may not be). These rules depend only on
+    shapes and data pointers and are checked before the device."""
     B, N, H, D = value.shape
     if sampling_locations.dim() != 6 or sampling_locations.shape[-1] != 2:
         raise ValueError(f"locations must be (B,Q,H,L,P,2), got "
@@ -111,10 +118,14 @@ def _check_kernel_inputs(value, shapes, sampling_locations, attention_weights):
                          f"{(B, Q, H, L, P)}")
     if sum(h * w for h, w in shapes) != N:
         raise ValueError(f"value has N={N}, shapes {shapes} sum to another")
-    if not (1 <= D <= 64 and L <= 32):
-        raise ValueError(f"kernel takes D <= 64 and L <= 32, got D={D} L={L}")
-    for name, t in (("value", value), ("locations", sampling_locations),
-                    ("weights", attention_weights)):
+    if not (D % 8 == 0 and 8 <= D <= 64 and L <= 32):
+        raise ValueError(f"kernel takes D % 8 == 0, D <= 64 and L <= 32, got D={D} L={L}")
+    tensors = (("value", value), ("locations", sampling_locations),
+               ("weights", attention_weights))
+    for name, t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned (data_ptr % 16 == 0)")
+    for name, t in tensors:
         if t.device.type != "cuda" or t.device != value.device:
             raise ValueError(f"{name} must be on {value.device}, is on {t.device}")
         if not t.is_contiguous():
@@ -133,7 +144,7 @@ def _raise_on(lib, fn_name: str, err: int) -> None:
 
 def _fwd_launch(value, spatial_shapes, sampling_locations, attention_weights,
                 threads: Optional[int]):
-    """Launch the forward kernel on the current stream: ``msda_fwd_*`` (256
+    """Launch the forward kernel on the current stream: ``msda_fwd_*`` (128
     threads) when ``threads`` is None, else ``msda_fwd_*_block``."""
     shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
     B, N, Q, H, D, L, P = _check_kernel_inputs(value, shapes, sampling_locations,

@@ -9,8 +9,11 @@ Contract:
   reps  number of products
   returns (M, N) fp32 = sum_{i < reps} bf16(a + i) @ b
 
-``tc_kdepth_cuda`` takes CUDA tensors only and never falls back. Each kernel
-launch is counted in ``LAUNCHES`` under its ``shape_key``.
+``tc_kdepth_cuda`` takes CUDA tensors only and never falls back: K % 16 == 0,
+N % 8 == 0, a fp32 and b bf16, contiguous and 16-byte aligned (the kernel
+reads them with vector loads). The shape, type and alignment rules are
+checked before the device. Each kernel launch is counted in ``LAUNCHES``
+under its ``shape_key``.
 """
 from __future__ import annotations
 
@@ -51,6 +54,9 @@ def tc_kdepth_cuda(a, b, reps: int, count: bool = True):
                          f"N={N} reps={reps}")
     if a.dtype != torch.float32 or b.dtype != torch.bfloat16:
         raise TypeError(f"a must be float32 and b bfloat16, got {a.dtype}, {b.dtype}")
+    for name, t in (("a", a), ("b", b)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned (data_ptr % 16 == 0)")
     for name, t in (("a", a), ("b", b)):
         if t.device.type != "cuda" or t.device != a.device:
             raise ValueError(f"{name} must be on {a.device}, is on {t.device}")

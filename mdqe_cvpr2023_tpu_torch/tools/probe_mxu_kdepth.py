@@ -4,10 +4,10 @@
 The Hopper counterpart of ``tools/probe_mxu_kdepth.py``, whose TPU kernel
 chains 48 bf16 products (1024, K) x (K, N) with fp32 accumulation over a grid
 of 8 steps that recompute the same block, to see whether the matrix unit pads
-a shallow K. Here the hand-written ``tc_kdepth`` kernel (mma.sync bf16 ->
-fp32) computes the same function, out = sum_{i<48} bf16(A + i) @ B, launched
-8 times in place of the grid of 8, over the same sweep: K = 16 .. 256 and
-N = 1024, 1536.
+a shallow K. Here the hand-written ``tc_kdepth`` kernel (wgmma bf16 -> fp32,
+A from registers) computes the same function, out = sum_{i<48} bf16(A + i) @
+B, launched 8 times in place of the grid of 8, over the same sweep: K = 16 ..
+256 and N = 1024, 1536.
 
 Per (K, N): ms per launch (CUDA events after a warm-up, cycling through
 inputs that differ by 0.001 as the TPU tool's do), TFLOP/s, the share of the
@@ -17,7 +17,7 @@ kernel's device time without the wrapper's host cost, which bounds the
 eager time of a short launch); beside it cuBLAS (``torch.matmul``) as the yardstick: on the 48
 stacked left operands, (48*1024, K) x (K, N) (the same products, not summed),
 and on the same function written as one product, (1024, 48*K) x (48*K, N)
-(``library_ms``).
+(``library_ms``; ``library_device_ms`` from a CUDA-graph replay).
 
 Usage: python3 -m mdqe_cvpr2023_tpu_torch.tools.probe_mxu_kdepth [--iters N]
 """
@@ -86,6 +86,7 @@ def sweep(iters: int = 10, device="cuda"):
             cat_a = stk.reshape(REPS, M, K).permute(1, 0, 2).reshape(M, REPS * K)
             cat_b = b.repeat(REPS, 1)
             library_ms = time_ms(lambda: torch.matmul(cat_a, cat_b), iters)
+            library_device_ms = graph_ms(lambda: torch.matmul(cat_a, cat_b), iters)
             plain_ms = time_ms(lambda: tc.tc_kdepth_plain(a, b, REPS), 2)
             bound_ms, bound_by, flops = tc_bound(M, N, K, REPS)
             tflops = flops / ms / 1e9
@@ -100,7 +101,8 @@ def sweep(iters: int = 10, device="cuda"):
                          "cublas_stacked_ms": stacked_ms,
                          "cublas_stacked_tflop_per_s": flops / stacked_ms / 1e9,
                          "library_ms": library_ms,
-                         "library_tflop_per_s": flops / library_ms / 1e9})
+                         "library_tflop_per_s": flops / library_ms / 1e9,
+                         "library_device_ms": library_device_ms})
             del avs, stk, cat_a, cat_b
     return rows
 

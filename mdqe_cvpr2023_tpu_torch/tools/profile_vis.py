@@ -8,8 +8,11 @@ reference gates and for the crowded tracker (gates off, the tracker fills to
 120 instances). For each it prints the wall time and clips/s, the host
 seconds per stage (each stage ending in a synchronize), and from one run under
 ``torch.profiler``: the device-busy share (union of kernel intervals over the
-run's wall time) and the kernels by total device time (user annotations left
-out).
+run's wall time), the device time, the forward deformable-attention kernel's
+part of it, and the kernels by total device time (user annotations left out).
+Last, where the window encode's device time goes: one encode chunk
+(``encode_chunk`` frames, the arguments of the run's first ``encode_window``
+call) profiled alone, by kernel.
 
 Usage: python3 -m mdqe_cvpr2023_tpu_torch.tools.profile_vis [--runs N]
 """
@@ -68,6 +71,39 @@ def _busy_and_kernels(prof, wall_s):
     return busy / 1e6 / wall_s, [(n[:90], round(t / 1e3, 3), c) for n, (t, c) in top]
 
 
+def _device_ms(events, part=""):
+    return sum(e.time_range.end - e.time_range.start for e in events if part in e.name) / 1e3
+
+
+def encode_breakdown(model, inf, frames, hw):
+    """Device ms of one window-encode chunk, the forward kernel's part, and
+    its kernels by device time: the arguments of the first ``encode_window``
+    call of a run, replayed alone under the profiler after a warm-up."""
+    captured = []
+    encode = meta.encode_window
+
+    def grab(*args, **kwargs):
+        if not captured:
+            captured.append((args, kwargs))
+        return encode(*args, **kwargs)
+
+    meta.encode_window = grab
+    try:
+        meta.inference_vis(model, inf, frames, hw, hw)
+    finally:
+        meta.encode_window = encode
+    args, kwargs = captured[0]
+    encode(*args, **kwargs)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        encode(*args, **kwargs)
+        torch.cuda.synchronize()
+    events = device_events(prof)
+    _, top = _busy_and_kernels(prof, 1.0)
+    return {"frames": int(args[1].shape[0]), "device_ms": _device_ms(events),
+            "msda_fwd_ms": _device_ms(events, "msda_fwd"), "top_kernels_ms_count": top[:8]}
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--runs", type=int, default=3, help="timed runs per variant")
@@ -101,13 +137,20 @@ def main():
             torch.cuda.synchronize()
             prof_wall = time.perf_counter() - t0
         busy, top = _busy_and_kernels(prof, prof_wall)
+        events = device_events(prof)
+        dev_ms, fwd_ms = _device_ms(events), _device_ms(events, "msda_fwd")
         print(json.dumps({
             "variant": name, "card": card, "tracks": out["num_tracks"],
             "wall_s": walls, "clips_per_s": [n_clips / w for w in walls],
             "stage_s": {k: v for k, v in timers.items() if not k.endswith("_n")},
             "profiled_wall_s": prof_wall,
             "device_busy_share": busy if busy is not None else "not measured",
+            "device_ms": dev_ms if events else "not measured",
+            "msda_fwd_ms": fwd_ms if events else "not measured",
+            "msda_fwd_share_of_device_time": fwd_ms / dev_ms if dev_ms else "not measured",
             "top_kernels_ms_count": top}), flush=True)
+    print(json.dumps({"card": card, "encode_chunk": encode_breakdown(model, INF, frames,
+                                                                     (H, W))}), flush=True)
 
 
 if __name__ == "__main__":

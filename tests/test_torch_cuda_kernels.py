@@ -76,6 +76,81 @@ def test_kernel_matches_plain(cuda_device, case):
     torch.testing.assert_close(got, want, rtol=0, atol=atol)
 
 
+# The forward kernel's input grid: D (threads per (query, head) = D / 8), P
+# (the point unroll's vector and scalar paths: 4 / 2 per step), L; both value
+# types. Locations in [-0.3, 1.3], so corners fall in and out of range.
+FWD_GRID = [(D, P, L, vdt) for D in (8, 16, 32, 48, 64) for P in (1, 2, 3, 4)
+            for L in (1, 4, 5) for vdt in ("f32", "bf16")]
+GRID_SHAPES = ((11, 7), (6, 9), (3, 5), (2, 2), (1, 3))
+
+
+@pytest.mark.parametrize("D,P,L,vdt", FWD_GRID)
+def test_kernel_matches_plain_over_the_input_grid(cuda_device, D, P, L, vdt):
+    shapes = GRID_SHAPES[:L]
+    B, Q, H = 2, 37, 3
+    rng = np.random.default_rng(D * 100 + P * 10 + L)
+    value = rng.standard_normal((B, sum(h * w for h, w in shapes), H, D)).astype(np.float32)
+    loc = rng.uniform(-0.3, 1.3, (B, Q, H, L, P, 2)).astype(np.float32)
+    attw = rng.dirichlet(np.ones(L * P), (B, Q, H)).reshape(B, Q, H, L, P).astype(np.float32)
+    v = torch.from_numpy(value).to(cuda_device)
+    if vdt == "bf16":
+        v = v.to(torch.bfloat16)
+    lo, aw = (torch.from_numpy(a).to(cuda_device) for a in (loc, attw))
+    want = da.ms_deform_attn_plain(v, shapes, lo, aw)
+    got = da.ms_deform_attn_cuda_block(v, shapes, lo, aw, 256, count=False)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-3 if vdt == "bf16" else 1e-4)
+    torch.testing.assert_close(da.ms_deform_attn_cuda(v, shapes, lo, aw), want, rtol=0,
+                               atol=1e-3 if vdt == "bf16" else 1e-4)
+
+
+@pytest.mark.parametrize("vdt", ["f32", "bf16"])
+def test_kernel_mixed_corners_within_a_warp(cuda_device, vdt):
+    """The heads of one query share a warp: odd heads sample well inside the
+    level, even heads on or across its border and far outside, so in-range
+    and out-of-range corners meet in every warp."""
+    shapes = ((9, 13), (4, 6))
+    B, Q, H, D, P = 2, 24, 8, 32, 4
+    rng = np.random.default_rng(7)
+    value = rng.standard_normal((B, 9 * 13 + 4 * 6, H, D)).astype(np.float32)
+    loc = rng.uniform(0.2, 0.8, (B, Q, H, 2, P, 2))
+    edge = rng.choice([-0.02, 0.0, 1.0, 1.03, -2.0, 3.0], (B, Q, H, 2, P, 2))
+    loc[:, :, 0::2] = edge[:, :, 0::2] + rng.uniform(-0.01, 0.01, edge[:, :, 0::2].shape)
+    loc = loc.astype(np.float32)
+    attw = rng.dirichlet(np.ones(2 * P), (B, Q, H)).reshape(B, Q, H, 2, P).astype(np.float32)
+    v = torch.from_numpy(value).to(cuda_device)
+    if vdt == "bf16":
+        v = v.to(torch.bfloat16)
+    lo, aw = (torch.from_numpy(a).to(cuda_device) for a in (loc, attw))
+    got = da.ms_deform_attn_cuda(v, shapes, lo, aw)
+    want = da.ms_deform_attn_plain(v, shapes, lo, aw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-3 if vdt == "bf16" else 1e-4)
+    assert float(got.reshape(B, Q, H, D)[:, :, 0::2].abs().max()) > 0  # some border taps
+
+
+def test_kernel_rejects_misaligned_views_and_d12(cuda_device):
+    shapes = ((6, 8),)
+    value, loc, attw = _inputs(1, 10, 2, 32, 2, shapes, "uniform")
+    v = torch.from_numpy(value).to(cuda_device)
+    lo = torch.from_numpy(loc).to(cuda_device)
+    aw = torch.from_numpy(attw).to(cuda_device)
+    shifted = torch.empty(v.numel() + 1, device=cuda_device)[1:].view(v.shape)
+    shifted.copy_(v)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        da.ms_deform_attn_cuda(shifted, shapes, lo, aw)
+    lo_s = torch.empty(lo.numel() + 2, device=cuda_device)[2:].view(lo.shape)
+    lo_s.copy_(lo)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        da.ms_deform_attn_cuda(v, shapes, lo_s, aw)
+    v12 = torch.zeros(1, 48, 2, 12, device=cuda_device)
+    with pytest.raises(ValueError, match="D % 8"):
+        da.ms_deform_attn_cuda(v12, shapes, lo, aw)
+    with pytest.raises(ValueError, match="D % 8"):
+        da.ms_deform_attn_cuda_block(v12, shapes, lo, aw, 256)
+
+
 def test_dispatcher_counts_only_kernel_launches(cuda_device):
     shapes = ((6, 8), (3, 4))
     value, loc, attw = _inputs(1, 10, 2, 32, 2, shapes, "uniform")
@@ -165,7 +240,7 @@ def test_backward_takes_noncontiguous_grad_and_rejects_bf16(cuda_device):
 
 # Block-size launchers (the kernel tools): every block size and value type at
 # a tool-like level and at odd shapes, against the plain version; the same
-# tolerances as the 256-thread launchers.
+# tolerances as the main paths' launchers.
 BLOCK_CASES = {
     "tune_level": (2, 300, 4, 32, 4, ((12, 20),), "uniform"),
     "odd_d48_q70": (2, 70, 3, 48, 3, ((10, 6), (3, 5)), "uniform"),
@@ -218,6 +293,25 @@ def test_tc_kdepth_matches_plain(cuda_device, case):
     assert tc.LAUNCHES == {tc.shape_key(K, N): 1}
 
 
+# The tile choice (64, 128 or 192 columns), ragged M and N edges, K slices of
+# 256 (K = 512), an odd number of products (the last rep has no partner).
+TC_GRID = [(M, N, K) for M in (1, 100, 1024) for N in (8, 200, 1000, 1024, 1536)
+           for K in (16, 80, 256, 512)]
+
+
+@pytest.mark.parametrize("M,N,K", TC_GRID)
+def test_tc_kdepth_matches_plain_over_the_grid(cuda_device, M, N, K):
+    rng = np.random.default_rng(M + 7 * N + 13 * K)
+    a = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32)).to(cuda_device)
+    b = torch.from_numpy(rng.standard_normal((K, N)).astype(np.float32)).to(cuda_device)
+    b = b.to(torch.bfloat16)
+    got = tc.tc_kdepth_cuda(a, b, 7, count=False)
+    want = tc.tc_kdepth_plain(a, b, 7)
+    torch.cuda.synchronize()
+    assert got.shape == (M, N) and bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
 def test_tc_kdepth_rejects_bad_shapes(cuda_device):
     a = torch.zeros(64, 24, device=cuda_device)
     b = torch.zeros(24, 64, device=cuda_device, dtype=torch.bfloat16)
@@ -227,3 +321,6 @@ def test_tc_kdepth_rejects_bad_shapes(cuda_device):
         tc.tc_kdepth_cuda(a[:, :16], b[:16, :60], 4)    # N % 8
     with pytest.raises(TypeError):
         tc.tc_kdepth_cuda(a[:, :16], b[:16].float(), 4)
+    shifted = torch.zeros(64 * 16 + 1, device=cuda_device)[1:].view(64, 16)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tc.tc_kdepth_cuda(shifted, b[:16], 4)

@@ -1,0 +1,111 @@
+"""The CUDA kernels' input rules, held by their wrappers on the CPU.
+
+The forward deformable-attention kernel reads 8 channels with one 16-byte
+vector load, and ``tc_kdepth`` reads its operands with vector loads, so their
+wrappers raise on D % 8 != 0 and on tensors that are not 16-byte aligned (a
+contiguous view at an offset may not be). Those rules depend only on shapes,
+types and data pointers and are checked before the device, so they hold here
+on CPU tensors; tensors that pass them fail on the device check instead (no
+fallback to the plain version).
+"""
+import numpy as np
+import pytest
+import torch
+
+from mdqe_cvpr2023_tpu_torch.ops import deform_attn as da
+from mdqe_cvpr2023_tpu_torch.ops import tc_kdepth as tc
+
+SHAPES = ((6, 8), (3, 4))
+N = 6 * 8 + 3 * 4
+
+
+def _inputs(D=32, H=2, Q=5, P=4, dtype=torch.float32):
+    rng = np.random.default_rng(0)
+    value = torch.from_numpy(rng.standard_normal((1, N, H, D)).astype(np.float32)).to(dtype)
+    loc = torch.from_numpy(rng.uniform(0, 1, (1, Q, H, 2, P, 2)).astype(np.float32))
+    attw = torch.full((1, Q, H, 2, P), 1.0 / (2 * P))
+    return value, loc, attw
+
+
+def _shifted(t, elems):
+    """A contiguous copy of ``t`` whose data starts ``elems`` elements past an
+    aligned allocation."""
+    out = torch.empty(t.numel() + elems, dtype=t.dtype)[elems:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("D", [4, 12, 20, 33, 72])
+def test_forward_rejects_d_not_a_multiple_of_8_or_above_64(D):
+    value, loc, attw = _inputs(D=D)
+    with pytest.raises(ValueError, match="D % 8"):
+        da._check_kernel_inputs(value, SHAPES, loc, attw)
+    with pytest.raises(ValueError, match="D % 8"):
+        da.ms_deform_attn_cuda(value, SHAPES, loc, attw)
+
+
+@pytest.mark.parametrize("D", [8, 16, 48, 64])
+def test_forward_takes_d_multiple_of_8_up_to_the_device_check(D):
+    value, loc, attw = _inputs(D=D)
+    with pytest.raises(ValueError, match="must be on"):
+        da._check_kernel_inputs(value, SHAPES, loc, attw)
+
+
+@pytest.mark.parametrize("which,elems", [("value", 1), ("value", 2), ("locations", 1),
+                                         ("locations", 2), ("weights", 3)])
+def test_forward_rejects_misaligned_views(which, elems):
+    value, loc, attw = _inputs()
+    args = {"value": value, "locations": loc, "weights": attw}
+    args[which] = _shifted(args[which], elems)
+    assert args[which].is_contiguous() and args[which].data_ptr() % 16
+    with pytest.raises(ValueError, match=f"{which} must be 16-byte aligned"):
+        da._check_kernel_inputs(args["value"], SHAPES, args["locations"], args["weights"])
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        da.ms_deform_attn_cuda_block(args["value"], SHAPES, args["locations"],
+                                     args["weights"], 256)
+
+
+def test_forward_takes_an_aligned_view_at_an_offset():
+    """A bf16 view 8 elements (16 bytes) into its allocation is aligned."""
+    value, loc, attw = _inputs(dtype=torch.bfloat16)
+    view = _shifted(value, 8)
+    assert view.data_ptr() % 16 == 0
+    with pytest.raises(ValueError, match="must be on"):
+        da._check_kernel_inputs(view, SHAPES, loc, attw)
+
+
+def test_backward_applies_the_same_rules():
+    value, loc, attw = _inputs(D=12)
+    gout = torch.zeros(1, 5, 2 * 12)
+    with pytest.raises(ValueError, match="D % 8"):
+        da.ms_deform_attn_bwd_cuda(value, SHAPES, loc, attw, gout)
+
+
+def test_backward_rejects_a_misaligned_value_view():
+    value, loc, attw = _inputs()
+    gout = torch.zeros(1, 5, 2 * 32)
+    with pytest.raises(ValueError, match="value must be 16-byte aligned"):
+        da.ms_deform_attn_bwd_cuda(_shifted(value, 1), SHAPES, loc, attw, gout)
+
+
+@pytest.mark.parametrize("which", ["a", "b"])
+def test_tc_kdepth_rejects_misaligned_operands(which):
+    a = torch.zeros(64, 32)
+    b = torch.zeros(32, 128, dtype=torch.bfloat16)
+    ops = {"a": a, "b": b}
+    ops[which] = _shifted(ops[which], 2 if which == "a" else 4)
+    assert ops[which].data_ptr() % 16
+    with pytest.raises(ValueError, match=f"{which} must be 16-byte aligned"):
+        tc.tc_kdepth_cuda(ops["a"], ops["b"], 3)
+
+
+@pytest.mark.parametrize("K,N", [(24, 128), (32, 60), (8, 64)])
+def test_tc_kdepth_rejects_shapes(K, N):
+    with pytest.raises(ValueError, match="K % 16"):
+        tc.tc_kdepth_cuda(torch.zeros(64, K), torch.zeros(K, N, dtype=torch.bfloat16), 3)
+
+
+def test_tc_kdepth_aligned_operands_reach_the_device_check():
+    a = _shifted(torch.zeros(64, 32), 4)  # 16 bytes in: aligned
+    with pytest.raises(ValueError, match="must be on"):
+        tc.tc_kdepth_cuda(a, torch.zeros(32, 128, dtype=torch.bfloat16), 3)
