@@ -6,7 +6,9 @@ Phases (each exits non-zero on failure; none is caught and continued):
   2. build: compile the CUDA kernels from the checkout with nvcc (sm_90a), one
      nvcc per source started together (ms_deform_attn.cu, tc_kdepth.cu),
      print ptxas's register / shared-memory / spill report, and check that
-     tc_kdepth's SASS holds wgmma (HGMMA) and no mma.sync (HMMA);
+     tc_kdepth's SASS holds wgmma (HGMMA) and no mma.sync (HMMA) and that the
+     backward kernel's d(value) scatter is 16-byte vector reductions
+     (REDG ... F32x4) and nothing else;
   3. the forward kernel against its plain PyTorch version at every call shape
      of the inference path (encoder, decoder box level, decoder temporal) and
      at odd shapes; the backward kernel against autograd of the plain version,
@@ -17,7 +19,7 @@ Phases (each exits non-zero on failure; none is caught and continued):
      problems and the COCO encoder's shape; the gather probe against the
      tool's oracle at every problem it times; tc_kdepth against its plain
      version at every (K, N) of the depth sweep;
-  4. kernel timing (CUDA events, and CUDA-graph replay for the forward),
+  4. kernel timing (CUDA events, and CUDA-graph replay),
      forward (inference, training and COCO shapes) and backward (training
      shapes), beside the plain version, the grid_sample composition (a
      yardstick the port never calls) and the least time the card could take
@@ -46,7 +48,10 @@ Phases (each exits non-zero on failure; none is caught and continued):
 
 Usage: python3 chip_smoke.py   (needs one CUDA card; runs from the checkout)
        python3 chip_smoke.py --kernel-times   (only the kernels' times at every
-       forward site and tc_kdepth shape, one JSON line each; see kernel_times)
+       forward site, the backward's training sites and every tc_kdepth shape,
+       one JSON line each; see kernel_times)
+       python3 chip_smoke.py --bwd-split [SOURCE]   (the backward kernel's time
+       split into its d(value) scatter and the rest; see bwd_split)
 """
 import dataclasses
 import json
@@ -182,14 +187,17 @@ def check_backward(torch, da):
 
 
 def time_backward(torch, da):
-    """At the training step's call shapes: ms per backward launch beside the
-    plain version's backward, the grid_sample form's backward and the bound;
-    and ms per forward launch beside the plain forward, the grid_sample form
-    and the forward's bound."""
+    """At the training step's call shapes: ms per backward launch (CUDA
+    events around eager calls, the wrapper's zeroed d(value) and allocations
+    included, and a CUDA-graph replay) beside the plain version's backward,
+    the grid_sample form's backward and the bound; and ms per forward launch
+    beside the plain forward, the grid_sample form and the forward's bound."""
     timings, fwd_timings = {}, {}
     for k, (site, B, Q, H, D, P, shapes, mode) in enumerate(BWD_CHECKS[:3]):
         v, lo, aw, gout = bwd_inputs(torch, B, Q, H, D, P, shapes, mode, seed=300 + k)
         ms = measure.time_ms(lambda: da.ms_deform_attn_bwd_cuda(v, shapes, lo, aw, gout), 20)
+        dev_ms = measure.graph_ms(lambda: da.ms_deform_attn_bwd_cuda(v, shapes, lo, aw, gout),
+                                  20)
         leaves, out, _ = grads_of(
             torch, lambda a, b, c: da.ms_deform_attn_plain(a, shapes, b, c),
             v, lo, aw, gout, retain=True)
@@ -205,11 +213,11 @@ def time_backward(torch, da):
         bound_ms, bound_by, nbytes, atomics = measure.msda_bwd_bound(v, shapes, lo, aw)
         timings[site] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                              bound_ms=bound_ms, bound_by=bound_by)
-        print(f"bwd {site:12s} B={B} Q={Q} kernel {ms:.4f} ms | plain backward "
-              f"{plain_ms:.3f} ms | grid_sample form backward {lib_ms:.3f} ms | bound "
-              f"{bound_ms * 1e3:.1f} us by {bound_by} ({nbytes / 1e6:.1f} MB) | "
-              f"{atomics / 1e6:.2f} M fp32 atomics | {bound_ms / ms:.1%} of bound",
-              flush=True)
+        print(f"bwd {site:12s} B={B} Q={Q} kernel {ms:.4f} ms (graph replay {dev_ms:.4f} ms) "
+              f"| plain backward {plain_ms:.3f} ms | grid_sample form backward {lib_ms:.3f} ms "
+              f"| bound {bound_ms * 1e3:.1f} us by {bound_by} ({nbytes / 1e6:.1f} MB) | "
+              f"{atomics / 1e6:.2f} M 16-byte vector atomics | {bound_ms / dev_ms:.1%} of "
+              f"bound (graph)", flush=True)
         f_ms = measure.time_ms(lambda: da.ms_deform_attn_cuda(v, shapes, lo, aw), 20)
         f_dev = measure.graph_ms(lambda: da.ms_deform_attn_cuda(v, shapes, lo, aw), 20)
         f_plain = measure.time_ms(lambda: da.ms_deform_attn_plain(v, shapes, lo, aw), 3)
@@ -384,17 +392,34 @@ def check_outputs(out, n_frames, hw, num_classes):
             fail(f"mask of shape {m.shape} {m.dtype}, want {(n_frames,) + tuple(hw)} bool")
 
 
+def sass_lines(_build, name):
+    """The SASS of ``csrc/<name>.cu``'s library (cuobjdump), line by line."""
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(_build.build(name))],
+                          capture_output=True, text=True)
+    if sass.returncode != 0:
+        fail(f"cuobjdump failed: {sass.stderr.strip()}")
+    return sass.stdout.splitlines()
+
+
+def check_vector_red(_build):
+    """msda_bwd_f32 must scatter d(value) with 16-byte vector reductions
+    (red.global.add.v4.f32): the library's SASS holds REDG ... F32x4
+    instructions and no other global reduction or atomic."""
+    red = [ln for ln in sass_lines(_build, "ms_deform_attn") if "REDG" in ln or "ATOMG" in ln]
+    vec = sum("F32x4" in ln for ln in red)
+    print(f"ms_deform_attn SASS: {vec} 16-byte vector reductions (REDG.E.ADD.F32x4), "
+          f"{len(red) - vec} other global atomics", flush=True)
+    if vec == 0 or len(red) != vec:
+        fail("msda_bwd_f32 does not scatter d(value) with vector reductions alone")
+
+
 def check_wgmma(_build):
     """tc_kdepth must run on Hopper's warpgroup products: its library's SASS
     (cuobjdump) holds HGMMA instructions and no mma.sync (HMMA), and ptxas did
     not serialize them (its C7513 note: a wait after every wgmma)."""
-    import shutil
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    sass = subprocess.run([tool, "-sass", str(_build.build("tc_kdepth"))],
-                          capture_output=True, text=True)
-    if sass.returncode != 0:
-        fail(f"cuobjdump failed: {sass.stderr.strip()}")
-    lines = sass.stdout.splitlines()
+    lines = sass_lines(_build, "tc_kdepth")
     hgmma = sum("HGMMA" in ln for ln in lines)
     hmma = sum("HMMA" in ln and "HGMMA" not in ln for ln in lines)
     print(f"tc_kdepth SASS: {hgmma} HGMMA, {hmma} HMMA instructions", flush=True)
@@ -805,8 +830,10 @@ def kernel_times():
     """``--kernel-times``: the kernels' times alone, one JSON line each: the
     forward kernel at every site of ``fwd_sites`` (ms per launch from CUDA
     events, wrapper included, and from a CUDA-graph replay; and by graph
-    replay at every block size of ``msda_fwd_*_block``) and tc_kdepth at
-    every (K, N) of the depth sweep (graph replay). It calls only wrappers that
+    replay at every block size of ``msda_fwd_*_block``), the backward kernel
+    at the training step's three sites (eager, the wrapper's zeroed d(value)
+    included, and graph replay) and tc_kdepth at every (K, N) of the depth
+    sweep (graph replay). It calls only wrappers that
     every checkout of the port has, so a copy of this script placed in another
     checkout (the parent commit's) times that checkout's kernels on the same
     inputs: run the two in turns (A, B, B, A) on one card."""
@@ -827,6 +854,14 @@ def kernel_times():
                           "graph_ms": np.mean(graph),
                           "block_graph_ms": {t: np.mean(ms) for t, ms in blocks.items()},
                           "card": card}), flush=True)
+    for k, (site, B, Q, H, D, P, shapes, mode) in enumerate(BWD_CHECKS[:3]):
+        v, lo, aw, gout = bwd_inputs(torch, B, Q, H, D, P, shapes, mode, seed=300 + k)
+        eager = measure.time_ms(lambda: da.ms_deform_attn_bwd_cuda(v, shapes, lo, aw, gout), 20)
+        graph = measure.graph_ms(lambda: da.ms_deform_attn_bwd_cuda(v, shapes, lo, aw, gout),
+                                 20)
+        print(json.dumps({"kernel": "msda_bwd", "site": f"train_{site}", "eager_ms": eager,
+                          "graph_ms": graph, "card": card}), flush=True)
+        del v, lo, aw, gout
     for N in pmk.NS:
         for K in pmk.KS:
             a, b = pmk.operands(K, N)
@@ -835,14 +870,85 @@ def kernel_times():
                               "card": card}), flush=True)
 
 
+# The backward kernel's d(value) scatter as it stands in the source, and what
+# ``--bwd-split`` puts in its place: plain stores (a wrong result; time only)
+# and nothing. One entry per design: the vector reductions, and the earlier
+# lane-per-channel fp32 atomics, so that an older checkout's source splits too.
+SCATTERS = (
+    ('asm volatile("red.global.add.v4.f32 [%0]', 'asm volatile("st.global.v4.f32 [%0]',
+     'if (0) asm volatile("red.global.add.v4.f32 [%0]'),
+    ("atomicAdd(grow + d, wc * g[k]);", "grow[d] = wc * g[k];", ";"),
+)
+
+
+def bwd_split(source):
+    """``--bwd-split [SOURCE]``: the backward kernel's time split into its
+    d(value) scatter and the rest. Builds three libraries from SOURCE (by
+    default this checkout's ms_deform_attn.cu; another checkout's copy splits
+    that one's kernel): as it is, with the scatter's atomics turned into
+    plain stores, and without the scatter; times ``msda_bwd_f32`` of each by
+    CUDA-graph replay at the training step's three sites, in turns (A, B, C,
+    C, B, A); one JSON line per site."""
+    import ctypes
+    import tempfile
+    from pathlib import Path
+    from mdqe_cvpr2023_tpu_torch.ops import _build
+    from mdqe_cvpr2023_tpu_torch.ops import deform_attn as da
+    path = Path(source) if source else _build.CSRC / "ms_deform_attn.cu"
+    src = path.read_text()
+    found = [sc for sc in SCATTERS if sc[0] in src]
+    if not found:
+        fail(f"{path} holds no d(value) scatter that --bwd-split knows")
+    scatter, stores, nothing = found[0]
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = Path(tempfile.mkdtemp(prefix="bwd_split_", dir=_build.BUILD_DIR))
+    procs = {}
+    for name, text in (("kernel", src), ("stores", src.replace(scatter, stores)),
+                       ("no_scatter", src.replace(scatter, nothing))):
+        (out / f"{name}.cu").write_text(text)
+        procs[name] = subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out / f"{name}.so"),
+             str(out / f"{name}.cu")], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    libs = {}
+    for name, proc in procs.items():
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            fail(f"nvcc failed for the {name} variant of {path}: {err[-2000:]}")
+        libs[name] = ctypes.CDLL(str(out / f"{name}.so"))
+        libs[name].msda_bwd_f32.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [
+            ctypes.c_void_p]
+    card = measure.card()
+    for k, (site, B, Q, H, D, P, shapes, mode) in enumerate(BWD_CHECKS[:3]):
+        v, lo, aw, gout = bwd_inputs(torch, B, Q, H, D, P, shapes, mode, seed=300 + k)
+        meta = da._level_meta(tuple(shapes), str(v.device))
+        gv, gl, ga = torch.zeros_like(v), torch.empty_like(lo), torch.empty_like(aw)
+        ptrs = [t.data_ptr() for t in (v, meta, lo, aw, gout, gv, gl, ga)]
+        dims = (B, v.shape[1], Q, H, D, len(shapes), P)
+
+        def launch(lib):
+            err = lib.msda_bwd_f32(*ptrs, *dims, torch.cuda.current_stream().cuda_stream)
+            if err:
+                fail(f"msda_bwd_f32 launch failed ({err})")
+        ms = {name: [] for name in libs}
+        for name in list(libs) + list(libs)[::-1]:
+            ms[name].append(measure.graph_ms(lambda: launch(libs[name]), 20))
+        print(json.dumps({"kernel": "msda_bwd_split", "site": f"train_{site}", "graph_ms": ms,
+                          "source": str(path), "card": card}), flush=True)
+        del v, lo, aw, gout, gv, gl, ga
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a CUDA card")
     if sys.argv[1:] == ["--kernel-times"]:
         kernel_times()
         return
+    if sys.argv[1:2] == ["--bwd-split"] and len(sys.argv) <= 3:
+        bwd_split(sys.argv[2] if len(sys.argv) == 3 else None)
+        return
     if sys.argv[1:]:
-        fail(f"unknown arguments {sys.argv[1:]}: run with none, or with --kernel-times")
+        fail(f"unknown arguments {sys.argv[1:]}: run with none, with --kernel-times or "
+             "with --bwd-split [SOURCE]")
     from mdqe_cvpr2023_tpu_torch.ops import _build
     from mdqe_cvpr2023_tpu_torch.ops import deform_attn as da
     from mdqe_cvpr2023_tpu_torch.models import meta
@@ -871,6 +977,7 @@ def main():
     for name in ("ms_deform_attn", "tc_kdepth"):
         print(_build.ptxas_report(name).strip(), flush=True)
     check_wgmma(_build)
+    check_vector_red(_build)
 
     # ---- 3. kernel against plain -------------------------------------------
     phase("kernel against plain version")

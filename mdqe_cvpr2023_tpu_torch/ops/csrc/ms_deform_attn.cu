@@ -62,29 +62,59 @@
 // issue and load latency, not bytes. Here the coordinate work per useful FMA
 // falls by 32 / G (8x at D = 32) and each thread keeps 4-8 taps in flight.
 //
-// Backward design: one warp per (b, q, head), lane = channel (two channels
-// per lane when 32 < D <= 64). Each tap reads one contiguous row of D
-// channels of value (128 B in fp32): one coalesced transaction per warp. The
-// lanes load the L*P (x, y, weight) triples of their query cooperatively, 32
-// at a time, and broadcast them with warp shuffles. Sums are in fp32.
+// Backward design (msda_bwd_f32, fp32 only): the forward's work unit, one
+// thread per (b, q, head, 8 channels), the heads of a query side by side,
+// 128 threads a block. The G = D / 8 threads of a (q, head) are rounded up to
+// a power of two, Gp (1, 2, 4 or 8; at D = 48, G = 6 and Gp = 8, the two
+// spare threads adding zeros), so that a group's sums reduce with log2(Gp)
+// xor shuffles inside the warp. Thread g holds channels 4g .. 4g+3 and
+// D/2 + 4g .. D/2 + 4g+3, so that the group's first (second) float4s form
+// the first (second) half of a row. A thread loads its 8 channels of the
+// output gradient g once and reads its points' (x, y, a) itself (as float4 /
+// float2 when P is even, else point by point); levels are the outer loop
+// ((h, w, start) from shared memory), points the inner one, 2 at a time with
+// their 8 taps' loads issued before the arithmetic that uses them. Per point
+// the coordinate work is done once for 8 channels: an out-of-range corner
+// gets weight 0 and a predicated load, never a branch, since a warp mixes
+// (q, head) pairs whose corners are in and out of range. Per tap the thread
+// forms dot = sum_d g[d] v[d] over its channels and adds it into three
+// partial sums: w_x w_y dot (d(weight)), dw_x/dx w_y dot and w_x dw_y/dy dot
+// (d(x), d(y), times a * size after the reduction). The group reduces the
+// six sums of a pair of points with 3 * log2(Gp) shuffles, and its thread 0
+// stores the pair's gradients as one float2 and one float4. A thread past
+// the last (b, q, head) stays in the loops on the last item's points and
+// adds and stores nothing: the shuffles need every lane of the warp.
 //
-// Backward: per (level, point) the warp recomputes the four taps and forms,
-// per lane, g[d] * v[d] for its channels; three warp reductions (xor shuffles)
-// give d(weight) = sum_d g.sample and d(x), d(y) = a * sum_d g.d(sample)/d(x, y)
-// from the corner weights' derivatives, and the lane whose index is the
-// point's slot keeps them, so the gradients of 32 points are written by one
-// coalesced store. d(value) is a scatter: each in-range corner row gets
-// atomicAdd(a * w_corner * g[d]), one fp32 atomic per channel and tap. The
+// d(value) is a scatter: per in-range tap, a * w_corner * g[d] into the 8
+// channels of the corner's row, by 16-byte vector reductions
+// (red.global.add.v4.f32, sm_90; SASS REDG.E.ADD.F32x4), a quarter of the
+// atomic instructions of fp32 atomics for the same bytes. Two neighbouring
+// groups of the warp swap halves with shuffles before it, so that each of a
+// warp's reductions writes whole rows (a full 128-byte line at D = 32)
+// rather than half rows: first the lower group's row, then the upper's. The
 // atomics make d(value)'s summation order vary from run to run.
 //
-// Bound on this card: memory. Per (b, q, head) the forward does 4 taps x D
-// multiply-adds per point for 2 + 1 fp32 words of location and weight read and
-// 4 rows of D values, so it sits far below the ~20 FLOP/byte ridge of fp32 on
-// an H100; its least time is the bytes it must move (value rows touched,
-// locations, weights, output) over the 3.35 TB/s of HBM. The backward moves
-// those rows twice (read, and atomically written into d(value)) and its atomics
-// and replicated per-lane coordinate work may well be what limit it; it keeps
-// the warp-per-(q, head) design for now.
+// Bound on this card. Bytes and flops give the least time: per (b, q, head)
+// the backward reads 4 rows of D values per point, the locations, weights
+// and output gradient, and writes d(value) in full (8 flops per tap and
+// channel), far below the ~20 FLOP/byte ridge of fp32 on an H100, so its
+// bound is those bytes over the 3.35 TB/s of HBM. What it must send to L2 is
+// larger: one 16-byte reduction per 4 channels of every in-range tap, 4.2 GB
+// at the training encoder, 10x the bytes of its bound. Measured on an H100
+// (chip_smoke.py --bwd-split: this kernel built with the reductions turned
+// into plain stores, and without them): without the scatter the kernel
+// takes about a quarter of its time, with plain stores in its place about
+// four fifths, so the scatter's traffic into L2, not the atomics as such and
+// not the issue of instructions, is what limits it. The design's answers
+// are the fewest instructions per tap and whole-row reductions; fewer bytes
+// would need the taps of a row summed before they leave the SM, and
+// shared-memory accumulation did not pay: fp32 atomics on shared memory are
+// a compare-and-swap loop (ATOMS.CAST.SPIN) on this card, slower at the
+// training encoder than the global reductions. The earlier design (one warp
+// per (b, q, head), lane = channel: the shuffles and the whole coordinate
+// computation on 32 lanes, 15 + 3 shuffles and four scalar atomic
+// instructions per point) was bound by instruction issue instead: plain
+// stores in place of its atomics left its time unchanged.
 //
 // Block size: the forward kernel is a template over its block size. The main
 // paths launch 128 threads (msda_fwd_f32, msda_fwd_bf16): on the H100 that
@@ -104,8 +134,7 @@ namespace {
 
 constexpr int kMaxLevels = 32;
 constexpr int kFwdThreads = 128;  // the main paths' forward block size
-constexpr int kThreads = 256;     // the backward's block size
-constexpr int kWarpsPerBlock = kThreads / 32;
+constexpr int kBwdThreads = 128;  // the backward's block size
 
 // 8 channels of one value row, as loaded.
 template <typename T> struct Vec8;
@@ -253,120 +282,191 @@ __global__ void __launch_bounds__(kBlock) msda_fwd_kernel(
 }
 
 
-template <int kChunks>
-__global__ void __launch_bounds__(kThreads) msda_bwd_kernel(
+// The backward's 8 channels of a row: 4 at p, 4 at p + half.
+__device__ __forceinline__ void load_split(Vec8<float>& v, const float* p, int half) {
+  v.lo = __ldg(reinterpret_cast<const float4*>(p));
+  v.hi = __ldg(reinterpret_cast<const float4*>(p + half));
+}
+
+// d(value) scatter: 4 contiguous fp32 added into global memory by one
+// 16-byte vector reduction (sm_90, PTX ISA 8.1).
+__device__ __forceinline__ void red_add4(float* p, float4 v) {
+  asm volatile("red.global.add.v4.f32 [%0], {%1, %2, %3, %4};"
+               :: "l"(__cvta_generic_to_global(p)), "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w)
+               : "memory");
+}
+
+__device__ __forceinline__ float4 scale4(float4 v, float s) {
+  return make_float4(s * v.x, s * v.y, s * v.z, s * v.w);
+}
+
+__device__ __forceinline__ float4 shfl_xor4(float4 v, int lane_mask) {
+  return make_float4(__shfl_xor_sync(0xffffffffu, v.x, lane_mask),
+                     __shfl_xor_sync(0xffffffffu, v.y, lane_mask),
+                     __shfl_xor_sync(0xffffffffu, v.z, lane_mask),
+                     __shfl_xor_sync(0xffffffffu, v.w, lane_mask));
+}
+
+template <int kGp>
+__global__ void __launch_bounds__(kBwdThreads) msda_bwd_kernel(
     const float* __restrict__ value, const int* __restrict__ level_meta,
     const float* __restrict__ loc, const float* __restrict__ attw,
     const float* __restrict__ grad_out, float* __restrict__ grad_value,
     float* __restrict__ grad_loc, float* __restrict__ grad_attw,
     int B, int N, int Q, int H, int D, int L, int P) {
-  __shared__ int s_h[kMaxLevels];
-  __shared__ int s_w[kMaxLevels];
-  __shared__ int s_start[kMaxLevels];
-  for (int i = threadIdx.x; i < L; i += blockDim.x) {
-    s_h[i] = level_meta[3 * i];
-    s_w[i] = level_meta[3 * i + 1];
-    s_start[i] = level_meta[3 * i + 2];
-  }
+  constexpr int kPU = 2;  // points per step: 8 taps of two float4 in flight
+  __shared__ int s_meta[3 * kMaxLevels];  // h, w, start of each level
+  for (int i = threadIdx.x; i < 3 * L; i += kBwdThreads) s_meta[i] = level_meta[i];
   __syncthreads();
 
-  const int64_t item = (int64_t)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   const int64_t total = (int64_t)B * Q * H;
-  if (item >= total) return;  // whole warps exit; no barrier follows
-  const int lane = threadIdx.x & 31;
+  const int64_t t = (int64_t)blockIdx.x * kBwdThreads + threadIdx.x;
+  const int g = (int)(t & (kGp - 1));
+  // Past the last (b, q, head) the group works on the last one's points and
+  // adds and stores nothing; it must not return before the shuffles.
+  const bool in_range = t / kGp < total;
+  const int64_t item = in_range ? t / kGp : total - 1;  // (b, q, head)
+  const bool live = in_range && g < (D >> 3);  // not a spare thread of the group
+  // The warp's groups go in pairs (lane ^ kGp) for the d(value) scatter.
+  const bool upper = (threadIdx.x & kGp) != 0;
   const int h = (int)(item % H);
   const int64_t b = item / H / Q;
   const int LP = L * P;
-  const int64_t row_stride = (int64_t)H * D;
-
+  const int row_stride = H * D;  // elements between pixels
+  const int half = D >> 1;  // this thread's channels: 4g .. 4g+3 and half + 4g ..
+  const int64_t bh_off = b * (int64_t)N * row_stride + h * D + 4 * g;
+  const float* v_bh = value + bh_off;
+  float* gv_bh = grad_value + bh_off;
   const float* loc_i = loc + item * LP * 2;
   const float* aw_i = attw + item * LP;
   float* gloc_i = grad_loc + item * LP * 2;
   float* gaw_i = grad_attw + item * LP;
-  const int64_t bh_off = b * (int64_t)N * row_stride + (int64_t)h * D;
-  const float* v_bh = value + bh_off;
-  float* gv_bh = grad_value + bh_off;
+  const bool vec = P % kPU == 0;  // then the pairs' vectors are aligned
 
-  float g[kChunks];
-#pragma unroll
-  for (int k = 0; k < kChunks; ++k) {
-    const int d = lane + 32 * k;
-    g[k] = d < D ? grad_out[item * D + d] : 0.f;
+  Vec8<float> go;  // this thread's 8 channels of the output gradient
+  if (live) {
+    load_split(go, grad_out + item * D + 4 * g, half);
+  } else {
+    zero8(go);
   }
 
-  for (int base = 0; base < LP; base += 32) {
-    const int i = base + lane;
-    float lx = 0.f, ly = 0.f, la = 0.f;
-    if (i < LP) {
-      lx = loc_i[2 * i];
-      ly = loc_i[2 * i + 1];
-      la = aw_i[i];
-    }
-    float my_ga = 0.f, my_gx = 0.f, my_gy = 0.f;
-    const int n = min(32, LP - base);
-    for (int j = 0; j < n; ++j) {
-      const float px = __shfl_sync(0xffffffffu, lx, j);
-      const float py = __shfl_sync(0xffffffffu, ly, j);
-      const float a = __shfl_sync(0xffffffffu, la, j);
-      const int l = (base + j) / P;
-      const int hl = s_h[l];
-      const int wl = s_w[l];
-      float x = __fmul_rn(px, (float)wl) - 0.5f;
-      float y = __fmul_rn(py, (float)hl) - 0.5f;
-      // Far outside the level every corner is out of range either way (no
-      // contribution to any gradient); the clamp only keeps the int
-      // conversion below defined.
-      x = fminf(fmaxf(x, -2.f), (float)wl + 1.f);
-      y = fminf(fmaxf(y, -2.f), (float)hl + 1.f);
-      const float x0f = floorf(x);
-      const float y0f = floorf(y);
-      const int x0 = (int)x0f;
-      const int y0 = (int)y0f;
-      const float fx = x - x0f;
-      const float fy = y - y0f;
-      const int64_t lvl_off = (int64_t)s_start[l] * row_stride;
-      float s_a = 0.f, s_x = 0.f, s_y = 0.f;  // this lane's channels only
+  for (int l = 0; l < L; ++l) {
+    const int hl = s_meta[3 * l];
+    const int wl = s_meta[3 * l + 1];
+    const int lvl = s_meta[3 * l + 2] * row_stride;
+    for (int p0 = 0; p0 < P; p0 += kPU) {
+      const int i0 = l * P + p0;  // the pair's first (level, point) slot
+      float px[kPU], py[kPU], a[kPU];
+      if (vec) {
+        const float4 xy = __ldg(reinterpret_cast<const float4*>(loc_i + 2 * i0));
+        const float2 w2 = __ldg(reinterpret_cast<const float2*>(aw_i + i0));
+        px[0] = xy.x;
+        py[0] = xy.y;
+        px[1] = xy.z;
+        py[1] = xy.w;
+        a[0] = w2.x;
+        a[1] = w2.y;
+      } else {
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int cx = x0 + (c & 1);
-        const int cy = y0 + (c >> 1);
-        if (cx < 0 || cx >= wl || cy < 0 || cy >= hl) continue;  // warp-uniform
-        const float wx = (c & 1) ? fx : 1.f - fx;
-        const float wy = (c >> 1) ? fy : 1.f - fy;
-        const float dwx = (c & 1) ? 1.f : -1.f;  // d(wx)/d(x)
-        const float dwy = (c >> 1) ? 1.f : -1.f;  // d(wy)/d(y)
-        const float wc = a * wx * wy;
-        const int64_t row_off = lvl_off + ((int64_t)cy * wl + cx) * row_stride;
-        const float* row = v_bh + row_off;
-        float* grow = gv_bh + row_off;
+        for (int u = 0; u < kPU; ++u) {
+          // a point past P lands far outside the level: no corner is in range
+          const bool in = p0 + u < P;
+          px[u] = in ? __ldg(loc_i + 2 * (i0 + u)) : -1.f;
+          py[u] = in ? __ldg(loc_i + 2 * (i0 + u) + 1) : -1.f;
+          a[u] = in ? __ldg(aw_i + i0 + u) : 0.f;
+        }
+      }
+      Vec8<float> v[kPU][4];
+      int row[kPU][4];  // corner's offset from the level's first row; -1 out of range
+      float fx[kPU], fy[kPU];
 #pragma unroll
-        for (int k = 0; k < kChunks; ++k) {
-          const int d = lane + 32 * k;
-          if (d < D) {
-            const float gv = g[k] * row[d];
-            s_a += wx * wy * gv;
-            s_x += dwx * wy * gv;
-            s_y += wx * dwy * gv;
-            atomicAdd(grow + d, wc * g[k]);
+      for (int u = 0; u < kPU; ++u) {
+        float x = __fmul_rn(px[u], (float)wl) - 0.5f;
+        float y = __fmul_rn(py[u], (float)hl) - 0.5f;
+        // Far outside the level every corner is out of range either way (no
+        // contribution to any gradient); the clamp only keeps the int
+        // conversion below defined.
+        x = fminf(fmaxf(x, -2.f), (float)wl + 1.f);
+        y = fminf(fmaxf(y, -2.f), (float)hl + 1.f);
+        const float x0f = floorf(x);
+        const float y0f = floorf(y);
+        const int x0 = (int)x0f;
+        const int y0 = (int)y0f;
+        fx[u] = x - x0f;
+        fy[u] = y - y0f;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int cx = x0 + (c & 1);
+          const int cy = y0 + (c >> 1);
+          const bool ok = live && cx >= 0 && cx < wl && cy >= 0 && cy < hl;
+          row[u][c] = ok ? lvl + (cy * wl + cx) * row_stride : -1;
+          if (ok) {
+            load_split(v[u][c], v_bh + row[u][c], half);
+          } else {
+            zero8(v[u][c]);
           }
         }
       }
+      float s[kPU][3];  // per point: d(weight), and d(x), d(y) before a * size
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        s_a += __shfl_xor_sync(0xffffffffu, s_a, off);
-        s_x += __shfl_xor_sync(0xffffffffu, s_x, off);
-        s_y += __shfl_xor_sync(0xffffffffu, s_y, off);
+      for (int u = 0; u < kPU; ++u) {
+        s[u][0] = s[u][1] = s[u][2] = 0.f;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const float wx = (c & 1) ? fx[u] : 1.f - fx[u];
+          const float wy = (c >> 1) ? fy[u] : 1.f - fy[u];
+          const Vec8<float>& r = v[u][c];
+          const float dot = go.lo.x * r.lo.x + go.lo.y * r.lo.y + go.lo.z * r.lo.z +
+                            go.lo.w * r.lo.w + go.hi.x * r.hi.x + go.hi.y * r.hi.y +
+                            go.hi.z * r.hi.z + go.hi.w * r.hi.w;
+          s[u][0] += wx * wy * dot;
+          s[u][1] += ((c & 1) ? wy : -wy) * dot;  // d(wx)/dx = +-1
+          s[u][2] += ((c >> 1) ? wx : -wx) * dot;
+          // d(value): the two groups of a pair swap halves, so that each
+          // vector reduction of the warp writes whole rows: first the lower
+          // group's row (its first half from the lower group's threads, its
+          // second from the upper's), then the upper group's. Every lane runs
+          // the shuffles; a corner out of range has no row and no reduction.
+          const float wc = a[u] * wx * wy;
+          const float4 lo = scale4(go.lo, wc);
+          const float4 hi = scale4(go.hi, wc);
+          float* mine = row[u][c] >= 0 ? gv_bh + row[u][c] : nullptr;
+          float* theirs = reinterpret_cast<float*>(__shfl_xor_sync(
+              0xffffffffu, reinterpret_cast<unsigned long long>(mine), kGp));
+          const float4 got = shfl_xor4(upper ? lo : hi, kGp);
+          float* first = upper ? theirs : mine;
+          float* second = upper ? mine : theirs;
+          const int col = upper ? half : 0;  // this lane's half of the row
+          if (first) red_add4(first + col, upper ? got : lo);
+          if (second) red_add4(second + col, upper ? hi : got);
+        }
       }
-      if (lane == j) {
-        my_ga = s_a;
-        my_gx = a * s_x * (float)wl;  // x = loc_x * w - 0.5
-        my_gy = a * s_y * (float)hl;
+#pragma unroll
+      for (int off = kGp / 2; off > 0; off >>= 1) {
+#pragma unroll
+        for (int u = 0; u < kPU; ++u)
+#pragma unroll
+          for (int k = 0; k < 3; ++k) s[u][k] += __shfl_xor_sync(0xffffffffu, s[u][k], off);
       }
-    }
-    if (i < LP) {
-      gaw_i[i] = my_ga;
-      gloc_i[2 * i] = my_gx;
-      gloc_i[2 * i + 1] = my_gy;
+      if (g == 0 && in_range) {
+        const float gx0 = a[0] * s[0][1] * (float)wl;  // x = loc_x * w - 0.5
+        const float gy0 = a[0] * s[0][2] * (float)hl;
+        const float gx1 = a[1] * s[1][1] * (float)wl;
+        const float gy1 = a[1] * s[1][2] * (float)hl;
+        if (vec) {
+          *reinterpret_cast<float2*>(gaw_i + i0) = make_float2(s[0][0], s[1][0]);
+          *reinterpret_cast<float4*>(gloc_i + 2 * i0) = make_float4(gx0, gy0, gx1, gy1);
+        } else {
+          gaw_i[i0] = s[0][0];
+          gloc_i[2 * i0] = gx0;
+          gloc_i[2 * i0 + 1] = gy0;
+          if (p0 + 1 < P) {
+            gaw_i[i0 + 1] = s[1][0];
+            gloc_i[2 * i0 + 2] = gx1;
+            gloc_i[2 * i0 + 3] = gy1;
+          }
+        }
+      }
     }
   }
 }
@@ -411,12 +511,15 @@ int launch_bwd(const void* value, const void* level_meta, const void* loc,
                const void* attw, const void* grad_out, void* grad_value,
                void* grad_loc, void* grad_attw, int B, int N, int Q, int H,
                int D, int L, int P, void* stream) {
-  if (L < 1 || L > kMaxLevels || D < 1 || D > 64 || P < 1) {
+  if (L < 1 || L > kMaxLevels || D < 8 || D > 64 || D % 8 != 0 || P < 1 ||
+      (int64_t)N * H * D > 0x7fffffffLL) {
     return (int)cudaErrorInvalidValue;
   }
   const int64_t total = (int64_t)B * Q * H;
   if (total == 0) return (int)cudaSuccess;
-  const int64_t blocks = (total + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  const int G = D / 8;
+  const int Gp = G == 1 ? 1 : G == 2 ? 2 : G <= 4 ? 4 : 8;  // threads per (b, q, head)
+  const int64_t blocks = (total * Gp + kBwdThreads - 1) / kBwdThreads;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const float* v = static_cast<const float*>(value);
@@ -427,12 +530,23 @@ int launch_bwd(const void* value, const void* level_meta, const void* loc,
   float* gv = static_cast<float*>(grad_value);
   float* gl = static_cast<float*>(grad_loc);
   float* ga = static_cast<float*>(grad_attw);
-  if (D <= 32) {
-    msda_bwd_kernel<1><<<(unsigned)blocks, kThreads, 0, s>>>(v, m, lo, aw, go, gv, gl, ga,
-                                                             B, N, Q, H, D, L, P);
-  } else {
-    msda_bwd_kernel<2><<<(unsigned)blocks, kThreads, 0, s>>>(v, m, lo, aw, go, gv, gl, ga,
-                                                             B, N, Q, H, D, L, P);
+  const unsigned nb = (unsigned)blocks;
+  switch (Gp) {
+    case 1:
+      msda_bwd_kernel<1><<<nb, kBwdThreads, 0, s>>>(v, m, lo, aw, go, gv, gl, ga, B, N, Q, H,
+                                                    D, L, P);
+      break;
+    case 2:
+      msda_bwd_kernel<2><<<nb, kBwdThreads, 0, s>>>(v, m, lo, aw, go, gv, gl, ga, B, N, Q, H,
+                                                    D, L, P);
+      break;
+    case 4:
+      msda_bwd_kernel<4><<<nb, kBwdThreads, 0, s>>>(v, m, lo, aw, go, gv, gl, ga, B, N, Q, H,
+                                                    D, L, P);
+      break;
+    default:
+      msda_bwd_kernel<8><<<nb, kBwdThreads, 0, s>>>(v, m, lo, aw, go, gv, gl, ga, B, N, Q, H,
+                                                    D, L, P);
   }
   return (int)cudaGetLastError();
 }

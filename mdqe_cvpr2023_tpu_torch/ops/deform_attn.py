@@ -18,10 +18,11 @@ falls back. Each call site keeps its own forward launch count in ``LAUNCHES``
 and backward launch count in ``BWD_LAUNCHES``, raised only where the kernel is
 launched. ``ms_deform_attn_cuda_block`` launches the forward kernel at a
 chosen block size for the kernel tools, counted in
-``BLOCK_LAUNCHES``. ``msda_bwd_f32`` accumulates d(value) with fp32 atomics, so
-its summation order, and its last bits, vary from run to run. The kernels take
-D % 8 == 0, D <= 64, L <= 32 and 16-byte aligned inputs
-(``_check_kernel_inputs``); the outputs are allocated here.
+``BLOCK_LAUNCHES``. ``msda_bwd_f32`` accumulates d(value) with 16-byte vector
+atomics, so its summation order, and its last bits, vary from run to run. The
+kernels take D % 8 == 0, D <= 64, L <= 32 and 16-byte aligned inputs, the
+backward's output gradient included (``_check_kernel_inputs``); the outputs
+are allocated here.
 """
 from __future__ import annotations
 
@@ -99,11 +100,13 @@ def _level_meta(spatial_shapes: Tuple[Tuple[int, int], ...], device: str):
     return torch.tensor(rows, dtype=torch.int32, device=device)
 
 
-def _check_kernel_inputs(value, shapes, sampling_locations, attention_weights):
+def _check_kernel_inputs(value, shapes, sampling_locations, attention_weights,
+                         grad_output=None):
     """Raise on what the kernels do not take; returns (B, N, Q, H, D, L, P).
-    The forward kernel reads 8 channels with one 16-byte vector load, so D
-    must be a multiple of 8 (and at most 64) and every tensor 16-byte aligned
-    (a contiguous view at an offset may not be). These rules depend only on
+    The kernels read and write 8 channels a thread with 16-byte vector loads
+    and atomics, so D must be a multiple of 8 (and at most 64) and every
+    tensor, the backward's ``grad_output`` included, 16-byte aligned (a
+    contiguous view at an offset may not be). These rules depend only on
     shapes and data pointers and are checked before the device."""
     B, N, H, D = value.shape
     if sampling_locations.dim() != 6 or sampling_locations.shape[-1] != 2:
@@ -120,8 +123,10 @@ def _check_kernel_inputs(value, shapes, sampling_locations, attention_weights):
         raise ValueError(f"value has N={N}, shapes {shapes} sum to another")
     if not (D % 8 == 0 and 8 <= D <= 64 and L <= 32):
         raise ValueError(f"kernel takes D % 8 == 0, D <= 64 and L <= 32, got D={D} L={L}")
-    tensors = (("value", value), ("locations", sampling_locations),
-               ("weights", attention_weights))
+    tensors = [("value", value), ("locations", sampling_locations),
+               ("weights", attention_weights)]
+    if grad_output is not None:
+        tensors.append(("grad_output", grad_output))
     for name, t in tensors:
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned (data_ptr % 16 == 0)")
@@ -211,15 +216,13 @@ def ms_deform_attn_bwd_cuda(value, spatial_shapes: Sequence[Tuple[int, int]],
     ``BWD_LAUNCHES``."""
     shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
     B, N, Q, H, D, L, P = _check_kernel_inputs(value, shapes, sampling_locations,
-                                               attention_weights)
+                                               attention_weights, grad_output)
     if value.dtype != torch.float32:
         raise TypeError(f"the backward kernel takes float32 value, got {value.dtype}: "
                         "mixed-precision (AMP) training is not ported")
     if tuple(grad_output.shape) != (B, Q, H * D) or grad_output.dtype != torch.float32:
         raise ValueError(f"grad_output must be float32 {(B, Q, H * D)}, got "
                          f"{grad_output.dtype} {tuple(grad_output.shape)}")
-    if grad_output.device != value.device or not grad_output.is_contiguous():
-        raise ValueError("grad_output must be contiguous on the value's device")
 
     lib = _build.load("ms_deform_attn")
     meta = _level_meta(shapes, str(value.device))

@@ -125,15 +125,15 @@ def msda_bwd_bound(value, shapes, loc, attw):
     locations, weights and the output gradient read; d(locations) and
     d(weights) written) over HBM bandwidth and (8*D flops per in-range tap:
     the sample, its two derivatives, the scattered product) over fp32 peak.
-    Returns (ms, bound_by, bytes, fp32 atomics: one per channel and in-range
-    tap, which may be what limits the kernel)."""
+    Returns (ms, bound_by, bytes, the kernel's 16-byte vector atomics: one
+    per 4 channels of every in-range tap, which the bound does not count)."""
     B, N, H, D = value.shape
     Q = loc.shape[1]
     touched, taps = msda_taps(value, shapes, loc)
     nbytes = (touched * D * 4 + value.numel() * 4 + 2 * loc.numel() * 4
               + 2 * attw.numel() * 4 + B * Q * H * D * 4)
     ms, by = _bound(nbytes, 8.0 * D * taps, FP32_FLOP_PER_S)
-    return ms, by, nbytes, taps * D
+    return ms, by, nbytes, taps * D // 4
 
 
 def tc_bound(M: int, N: int, K: int, reps: int):

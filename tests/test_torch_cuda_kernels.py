@@ -179,9 +179,9 @@ def test_wrapper_rejects_bad_input(cuda_device):
 
 # Backward: (B, Q, H, D, P, shapes, loc mode). Locations up to well outside
 # the levels, so zero padding and the far clamp are exercised. Tolerances:
-# d(loc) and d(weights) are warp sums in another order than autograd's (1e-4
-# of the largest entry); d(value) sums with fp32 atomics in an order that
-# changes from run to run (the same 1e-4).
+# d(loc) and d(weights) are shuffle sums in another order than autograd's
+# (1e-4 of the largest entry); d(value) sums with vector atomics in an order
+# that changes from run to run (the same 1e-4).
 BWD_CASES = {
     "odd_d16_q70": (2, 70, 2, 16, 4, ((10, 6), (3, 5), (7, 11)), "uniform"),
     "odd_d48": (2, 45, 2, 48, 2, ((9, 4), (2, 11)), "uniform"),
@@ -215,10 +215,7 @@ def test_backward_kernel_matches_plain_autograd(cuda_device, case):
                      v, lo, aw, go)
     torch.cuda.synchronize()
     assert da.LAUNCHES["encoder"] == 1 and da.BWD_LAUNCHES["encoder"] == 1
-    for name, g, w in zip(("value", "loc", "attw"), got, want):
-        assert g.shape == w.shape and g.dtype == torch.float32, name
-        tol = 1e-4 * max(float(w.abs().max()), 1.0)
-        torch.testing.assert_close(g, w, rtol=0, atol=tol, msg=name)
+    _assert_grads_close(got, want)
 
 
 def test_backward_takes_noncontiguous_grad_and_rejects_bf16(cuda_device):
@@ -236,6 +233,74 @@ def test_backward_takes_noncontiguous_grad_and_rejects_bf16(cuda_device):
     with pytest.raises(TypeError, match="AMP"):
         da.ms_deform_attn_bwd_cuda(v.bfloat16(), shapes, lo, aw,
                                    torch.zeros(1, 10, 64, device=cuda_device))
+
+
+# The backward kernel's input grid: D (threads per (query, head) = D / 8,
+# padded to a power of two: D = 48 runs groups of 8 with 2 spare threads), P
+# (the point pairs' vector and scalar paths), L. Locations in [-0.3, 1.3], so
+# corners fall in and out of range. B * Q * H = 222 (query, head) pairs, so
+# the last warp is cut short at every D. Tolerance: 1e-4 of each output's
+# largest entry (at least 1e-4): the group's shuffle sums run in another
+# order than autograd's, and d(value)'s vector atomics in an order that
+# changes from run to run.
+BWD_GRID = [(D, P, L) for D in (8, 16, 32, 48, 64) for P in (1, 2, 3, 4) for L in (1, 4, 5)]
+
+
+def _assert_grads_close(got, want):
+    for name, g, w in zip(("value", "loc", "attw"), got, want):
+        assert g.shape == w.shape and g.dtype == torch.float32, name
+        tol = 1e-4 * max(float(w.abs().max()), 1.0)
+        torch.testing.assert_close(g, w, rtol=0, atol=tol, msg=name)
+
+
+def _bwd_check(device, B, Q, H, D, P, shapes, loc, seed):
+    rng = np.random.default_rng(seed)
+    L = len(shapes)
+    value = rng.standard_normal((B, sum(h * w for h, w in shapes), H, D)).astype(np.float32)
+    attw = rng.dirichlet(np.ones(L * P), (B, Q, H)).reshape(B, Q, H, L, P).astype(np.float32)
+    gout = rng.standard_normal((B, Q, H * D)).astype(np.float32)
+    v, lo, aw, go = (torch.from_numpy(a).to(device) for a in (value, loc, attw, gout))
+    got = da.ms_deform_attn_bwd_cuda(v, shapes, lo, aw, go)
+    want = _grads_of(lambda *a: da.ms_deform_attn_plain(a[0], shapes, a[1], a[2]),
+                     v, lo, aw, go)
+    torch.cuda.synchronize()
+    _assert_grads_close(got, want)
+    return got
+
+
+@pytest.mark.parametrize("D,P,L", BWD_GRID)
+def test_backward_kernel_matches_plain_over_the_input_grid(cuda_device, D, P, L):
+    shapes = GRID_SHAPES[:L]
+    B, Q, H = 2, 37, 3
+    loc = np.random.default_rng(D * 100 + P * 10 + L + 1).uniform(
+        -0.3, 1.3, (B, Q, H, L, P, 2)).astype(np.float32)
+    _bwd_check(cuda_device, B, Q, H, D, P, shapes, loc, seed=D * 100 + P * 10 + L)
+
+
+def test_backward_mixed_corners_within_a_warp(cuda_device):
+    """The backward twin of test_kernel_mixed_corners_within_a_warp: odd heads
+    sample well inside the level, even heads on or across its border and far
+    outside, so in-range and out-of-range corners meet in every warp (and in
+    its shuffles and atomics)."""
+    shapes = ((9, 13), (4, 6))
+    B, Q, H, D, P = 2, 24, 8, 32, 4
+    rng = np.random.default_rng(8)
+    loc = rng.uniform(0.2, 0.8, (B, Q, H, 2, P, 2))
+    edge = rng.choice([-0.02, 0.0, 1.0, 1.03, -2.0, 3.0], (B, Q, H, 2, P, 2))
+    loc[:, :, 0::2] = edge[:, :, 0::2] + rng.uniform(-0.01, 0.01, edge[:, :, 0::2].shape)
+    got = _bwd_check(cuda_device, B, Q, H, D, P, shapes, loc.astype(np.float32), seed=9)
+    assert float(got[2][:, :, 0::2].abs().max()) > 0  # some border taps have weight
+
+
+@pytest.mark.parametrize("D", [16, 48, 64])
+def test_backward_kernel_with_the_last_warp_cut_short(cuda_device, D):
+    """B * Q * H * Gp not a multiple of 32 (39 pairs of 2, 8 or 8 threads):
+    the threads past the last pair stay in the shuffles and add nothing."""
+    shapes = ((7, 5), (3, 4))
+    B, Q, H, P = 1, 13, 3, 4
+    assert (B * Q * H * {16: 2, 48: 8, 64: 8}[D]) % 32
+    loc = np.random.default_rng(D).uniform(-0.3, 1.3, (B, Q, H, 2, P, 2)).astype(np.float32)
+    _bwd_check(cuda_device, B, Q, H, D, P, shapes, loc, seed=D + 1)
 
 
 # Block-size launchers (the kernel tools): every block size and value type at

@@ -1,9 +1,10 @@
 """The CUDA kernels' input rules, held by their wrappers on the CPU.
 
-The forward deformable-attention kernel reads 8 channels with one 16-byte
-vector load, and ``tc_kdepth`` reads its operands with vector loads, so their
-wrappers raise on D % 8 != 0 and on tensors that are not 16-byte aligned (a
-contiguous view at an offset may not be). Those rules depend only on shapes,
+The deformable-attention kernels read and write 8 channels a thread with
+16-byte vector loads and atomics, and ``tc_kdepth`` reads its operands with
+vector loads, so their wrappers raise on D % 8 != 0 and on tensors that are
+not 16-byte aligned (a contiguous view at an offset may not be), the
+backward's output gradient included. Those rules depend only on shapes,
 types and data pointers and are checked before the device, so they hold here
 on CPU tensors; tensors that pass them fail on the device check instead (no
 fallback to the plain version).
@@ -74,10 +75,28 @@ def test_forward_takes_an_aligned_view_at_an_offset():
         da._check_kernel_inputs(view, SHAPES, loc, attw)
 
 
-def test_backward_applies_the_same_rules():
-    value, loc, attw = _inputs(D=12)
-    gout = torch.zeros(1, 5, 2 * 12)
+@pytest.mark.parametrize("D", [12, 72])
+def test_backward_applies_the_same_rules(D):
+    value, loc, attw = _inputs(D=D)
+    gout = torch.zeros(1, 5, 2 * D)
     with pytest.raises(ValueError, match="D % 8"):
+        da.ms_deform_attn_bwd_cuda(value, SHAPES, loc, attw, gout)
+
+
+def test_backward_takes_d48_up_to_the_device_check():
+    """D = 48: 6 threads a (query, head), padded to a group of 8 in the kernel."""
+    value, loc, attw = _inputs(D=48)
+    with pytest.raises(ValueError, match="must be on"):
+        da.ms_deform_attn_bwd_cuda(value, SHAPES, loc, attw, torch.zeros(1, 5, 2 * 48))
+
+
+@pytest.mark.parametrize("elems", [1, 2, 3])
+def test_backward_rejects_a_misaligned_grad_output_view(elems):
+    """The backward kernel reads the output gradient as float4 vectors."""
+    value, loc, attw = _inputs()
+    gout = _shifted(torch.zeros(1, 5, 2 * 32), elems)
+    assert gout.is_contiguous() and gout.data_ptr() % 16
+    with pytest.raises(ValueError, match="grad_output must be 16-byte aligned"):
         da.ms_deform_attn_bwd_cuda(value, SHAPES, loc, attw, gout)
 
 
@@ -86,6 +105,15 @@ def test_backward_rejects_a_misaligned_value_view():
     gout = torch.zeros(1, 5, 2 * 32)
     with pytest.raises(ValueError, match="value must be 16-byte aligned"):
         da.ms_deform_attn_bwd_cuda(_shifted(value, 1), SHAPES, loc, attw, gout)
+
+
+def test_bwd_split_finds_the_backward_scatter_in_the_source():
+    """``chip_smoke.py --bwd-split`` rewrites the backward kernel's d(value)
+    scatter by text (plain stores; nothing): the source holds it once."""
+    import chip_smoke
+    from mdqe_cvpr2023_tpu_torch.ops import _build
+    src = (_build.CSRC / "ms_deform_attn.cu").read_text()
+    assert [src.count(sc[0]) for sc in chip_smoke.SCATTERS] == [1, 0]
 
 
 @pytest.mark.parametrize("which", ["a", "b"])
