@@ -40,7 +40,16 @@ Phases (each exits non-zero on failure; none is caught and continued):
      memory, forward and backward launches per call site, finite losses,
      frozen parameters and buffers unchanged, a lower loss after a few steps;
      then a tiny training step on the card against the port's CPU path (loss
-     dict, gradients, parameters after one step);
+     dict, gradients, parameters after one step); then the train/test entry
+     point (python -m mdqe_cvpr2023_tpu_torch.train_net) at full width on a
+     synthetic OVIS-layout dataset of 360x640 frames: 5 iterations with 2
+     loader threads, a checkpoint, a second process resumed from it for 2
+     more, each ending in test with the YTVIS AP; s/iter, data_wait_frac,
+     peak memory, launches per call site, exact resume (iteration, LR
+     schedule, AdamW steps), test clips/s and the host seconds of RLE encoding
+     and evaluation; then the tiny Trainer on the card against the port's CPU
+     path (loader batches, losses, test predictions, AP) and the native RLE
+     codec against the Python one;
   7. the kernel tools' sweeps (block sizes, gather probe, tensor-core depth),
      each problem with the launch counts set to 0 before it and read after
      it;
@@ -55,8 +64,11 @@ Usage: python3 chip_smoke.py   (needs one CUDA card; runs from the checkout)
 """
 import dataclasses
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -375,6 +387,346 @@ def tiny_train_card_vs_cpu(torch):
     if (loss_err > 1e-4 or abs(norm_g - norm_c) / norm_c > 1e-4 or bad or worst_cos < 0.9999
             or q99 > 0.01 or q999 > 0.05 or diffs.max() > 1.0 or frozen_diff != 0):
         fail(f"the tiny training step on the card disagrees with the CPU path: {bad[:5]}")
+
+
+def write_ppm(path, img):
+    """RGB uint8 (H, W, 3) -> a binary PPM (P6) file, with numpy alone."""
+    h, w, _ = img.shape
+    with open(path, "wb") as f:
+        f.write(b"P6\n%d %d\n255\n" % (w, h))
+        f.write(np.ascontiguousarray(img, np.uint8).tobytes())
+
+
+def write_ovis_dataset(root, hw, train_frames, dev_frames, num_classes, seed):
+    """A synthetic OVIS-layout dataset under ``root``: ``ovis/train/v<i>/*.ppm``,
+    ``ovis/annotations_train.json`` (a video per entry of ``train_frames``,
+    that many frames each) and ``ovis/valid_sub.json`` (one video of
+    ``dev_frames`` frames), the splits ytvis_ovis_train and ytvis_ovis_dev
+    name. Each video holds 3-6 ellipses that move from frame to frame over a
+    noisy background, with the RLE GT of tests/synth_dataset.py's schema
+    (per-frame segmentations, xywh boxes, areas)."""
+    from mdqe_cvpr2023_tpu_torch.data import rle
+    rng = np.random.default_rng(seed)
+    H, W = hw
+    yy, xx = np.mgrid[0:H, 0:W]
+    splits = {"annotations_train.json": [], "valid_sub.json": []}
+    for vid, T in enumerate(list(train_frames) + [dev_frames], start=1):
+        split = "valid_sub.json" if vid == len(train_frames) + 1 else "annotations_train.json"
+        os.makedirs(os.path.join(root, "ovis", "train", f"v{vid}"), exist_ok=True)
+        objs = [dict(r=rng.uniform(0.06, 0.2, 2) * (H, W), c=rng.uniform(0.2, 0.8, 2) * (H, W),
+                     v=rng.uniform(-0.01, 0.01, 2) * (H, W), col=rng.integers(60, 255, 3),
+                     cat=int(rng.integers(1, num_classes + 1)))
+                  for _ in range(int(rng.integers(3, 7)))]
+        segs = [[] for _ in objs]
+        boxes = [[] for _ in objs]
+        areas = [[] for _ in objs]
+        names = []
+        for t in range(T):
+            img = rng.integers(0, 50, (H, W, 3)).astype(np.uint8)
+            for k, o in enumerate(objs):
+                cy, cx = np.clip(o["c"] + t * o["v"], o["r"], (H, W) - o["r"])
+                m = ((yy - cy) / o["r"][0]) ** 2 + ((xx - cx) / o["r"][1]) ** 2 <= 1.0
+                img[m] = o["col"]
+                ys, xs = np.nonzero(m)
+                segs[k].append(rle.encode(m))
+                boxes[k].append([float(xs.min()), float(ys.min()),
+                                 float(xs.max() - xs.min() + 1), float(ys.max() - ys.min() + 1)])
+                areas[k].append(int(m.sum()))
+            name = f"v{vid}/f{t:03d}.ppm"
+            write_ppm(os.path.join(root, "ovis", "train", name), img)
+            names.append(name)
+        video = {"id": vid, "file_names": names, "height": H, "width": W, "length": T}
+        anns = [{"id": 100 * vid + k, "video_id": vid, "category_id": o["cat"],
+                 "segmentations": segs[k], "bboxes": boxes[k], "areas": areas[k],
+                 "iscrowd": 0} for k, o in enumerate(objs)]
+        splits[split].append((video, anns))
+    for split, entries in splits.items():
+        gt = {"videos": [v for v, _ in entries], "annotations": [a for _, an in entries for a in an],
+              "categories": [{"id": c, "name": f"class{c}"} for c in range(1, num_classes + 1)]}
+        with open(os.path.join(root, "ovis", split), "w") as f:
+            json.dump(gt, f)
+    return root
+
+
+# the Trainer's full-width run: the cuts that one card and the repository force
+# (R50_ovis_360.yaml otherwise as it is: R50, hidden 256, 6+6 layers, 196
+# queries, 25 classes, the 320-512 x 800 buckets, 4-frame clips)
+TRAINER_CUTS = [
+    ("DATASETS.TRAIN", "['ytvis_ovis_train']",
+     "no COCO pseudo-videos: no COCO data is in the repository"),
+    ("DATASETS.TEST", "['ytvis_ovis_dev']",
+     "the dev split of the synthetic dataset (OVIS valid has no public GT)"),
+    ("SOLVER.IMS_PER_BATCH", "2",
+     "16 clips of 4 frames at 512x800 do not fit one card: the training step of 2 clips "
+     "peaks at 19.26 GiB on an 80 GB H100"),
+    ("MODEL.WEIGHTS", "''", "no released weights are in the repository: random, seed 0"),
+    ("DATALOADER.NUM_WORKERS", "2", "2 loader threads (the config's 4) on the 8-core host"),
+]
+TRAIN_ITERS, RESUMED_ITERS = 5, 2
+
+
+def run_train_net(args, out_dir):
+    """``python -m mdqe_cvpr2023_tpu_torch.train_net args`` from the checkout,
+    its output echoed; fails on a non-zero exit."""
+    cmd = [sys.executable, "-m", "mdqe_cvpr2023_tpu_torch.train_net", *args]
+    print("$ " + " ".join(cmd), flush=True)
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
+                          capture_output=True, text=True, timeout=900)
+    print(proc.stdout.strip(), flush=True)
+    if proc.returncode != 0:
+        print(proc.stderr[-6000:], file=sys.stderr, flush=True)
+        fail(f"train_net exited with {proc.returncode}")
+    print(f"train_net took {time.perf_counter() - t0:.1f} s", flush=True)
+    return [json.loads(l) for l in open(f"{out_dir}/metrics.jsonl")]
+
+
+def trainer_full_width(card):
+    """The port's train/test entry point at full width through its CLI: a
+    synthetic OVIS-layout dataset of 360x640 frames, R50_ovis_360.yaml with
+    the cuts of TRAINER_CUTS. Three processes: ``--eval-only`` on the
+    initial weights (``test`` on the dev video, 36 frames: trained weights
+    soon predict blank masks, so only the initial ones leave tracks to
+    encode and score); TRAIN_ITERS iterations with 2 loader threads and a
+    checkpoint; a new process resumed from it for RESUMED_ITERS more. The
+    training runs end in ``test`` too. Every metrics.jsonl row carries the
+    kernels' launches since the row before. Returns the launches per call
+    site: training forward, training backward, test forward (the first
+    test)."""
+    from mdqe_cvpr2023_tpu_torch.data import image
+    from mdqe_cvpr2023_tpu_torch.engine.build import build_train_cfg
+    from mdqe_cvpr2023_tpu_torch.engine.config import load_config
+    from mdqe_cvpr2023_tpu_torch.parallel.train import lr_factor
+    tmp = tempfile.mkdtemp(prefix="mdqe_trainer_")
+    try:
+        t0 = time.perf_counter()
+        write_ovis_dataset(tmp, (360, 640), train_frames=(24, 30, 36), dev_frames=36,
+                           num_classes=25, seed=0)
+        print(f"synthetic OVIS dataset: 3 train videos (24, 30, 36 frames) and 1 dev video "
+              f"(36 frames) of 360x640 PPM, 3-6 moving objects each, in "
+              f"{time.perf_counter() - t0:.1f} s; images read by {image.BACKEND}", flush=True)
+        print("reduced: " + "; ".join(f"{k} {v} ({why})" for k, v, why in TRAINER_CUTS),
+              flush=True)
+        out = os.path.join(tmp, "out")
+        config = "configs/R50_ovis_360.yaml"
+        opts = [x for k, v, _ in TRAINER_CUTS for x in (k, v)] + ["OUTPUT_DIR", out]
+        common = ["--config-file", config, "--datasets-root", tmp, "--max-videos", "1",
+                  "--log-every", "1"]
+        run_train_net(common + ["--eval-only"] + opts, out)
+        run_train_net(common + ["--max-iter", str(TRAIN_ITERS)] + opts, out)
+        first = os.path.join(out, f"ckpt_{TRAIN_ITERS:07d}.pth")
+        total = TRAIN_ITERS + RESUMED_ITERS
+        rows = run_train_net(common + ["--resume", first, "--max-iter", str(total)] + opts, out)
+
+        train = [r for r in rows if "test" not in r]
+        tests = [r for r in rows if "test" in r]
+        if ([r["iteration"] for r in train] != list(range(1, total + 1))
+                or [r["iteration"] for r in tests] != [0, TRAIN_ITERS, total]):
+            fail(f"metrics rows {[(r['iteration'], 'test' in r) for r in rows]}")
+        steady = [r for r in train if r["iteration"] not in (1, TRAIN_ITERS + 1)]
+        s_iter = float(np.mean([r["sec_per_iter"] for r in steady]))
+        wait = float(np.mean([r["data_wait_frac"] for r in steady]))
+        print(f"s/iter per iteration {[round(r['sec_per_iter'], 4) for r in train]} "
+              f"-> {s_iter:.4f} s/iter over iterations 2-{TRAIN_ITERS}, {TRAIN_ITERS + 2}-"
+              f"{total} (the first of each process warms up) ({card})")
+        print(f"data_wait_frac per iteration {[round(r['data_wait_frac'], 4) for r in train]}"
+              f" -> {wait:.4f}")
+        print(f"peak device memory {max(r['max_mem_gib'] for r in rows):.2f} GiB")
+        print(f"total loss per iteration {[round(r['total_loss'], 4) for r in train]}")
+        fwd = {s: sum(r["msda_launches"]["fwd"][s] for r in train) for s in train[0]["msda_launches"]["fwd"]}
+        bwd = {s: sum(r["msda_launches"]["bwd"][s] for r in train) for s in fwd}
+        test_fwd = tests[0]["msda_launches"]["fwd"]
+        print(f"launches in {total} training steps: forward {json.dumps(fwd)}, backward "
+              f"{json.dumps(bwd)}; in each test: "
+              f"{'; '.join(json.dumps(t['msda_launches']) for t in tests)}", flush=True)
+        want = {k: total * v for k, v in expected_train_launches(trainer_model_cfg()).items()}
+        if fwd != want or bwd != want:
+            fail(f"trainer launches {fwd} / {bwd}, want {want} each")
+        for t in tests:
+            if min(t["msda_launches"]["fwd"].values()) == 0 or any(
+                    t["msda_launches"]["bwd"].values()):
+                fail(f"test launches {t['msda_launches']}")
+        if not all(np.isfinite(r["total_loss"]) for r in train):
+            fail("non-finite training loss")
+
+        tc = build_train_cfg(load_config(config))
+        for it in (TRAIN_ITERS, total):
+            ck = torch.load(os.path.join(out, f"ckpt_{it:07d}.pth"), map_location="cpu",
+                            weights_only=True)
+            lrs = [g["lr"] for g in ck["optimizer"]["param_groups"]]
+            want_lrs = [tc.base_lr * tc.backbone_multiplier * lr_factor(tc, it - 1),
+                        tc.base_lr * lr_factor(tc, it - 1)]
+            steps = {float(s["step"]) for s in ck["optimizer"]["state"].values()}
+            print(f"checkpoint {it}: iteration {ck['iteration']}, step_count "
+                  f"{ck['step_count']}, AdamW steps {sorted(steps)}, LR factor of the last "
+                  f"step {lrs[1] / tc.base_lr:.6g} (want {lr_factor(tc, it - 1):.6g}), group "
+                  f"LRs {lrs}", flush=True)
+            if (ck["iteration"] != it or ck["step_count"] != it or steps != {float(it)}
+                    or lrs != want_lrs):
+                fail(f"checkpoint {it} is not exact: {ck['iteration']}, {ck['step_count']}, "
+                     f"{steps}, {lrs} vs {want_lrs}")
+        # the loader alone: host seconds of batch_at(k) for the run's batches
+        from mdqe_cvpr2023_tpu_torch.engine.trainer import build_train_loader
+        loader = build_train_loader(load_config(config, opts), tmp)
+        secs, hws = [], []
+        for k in range(total):
+            t0 = time.perf_counter()
+            b = loader.batch_at(k)
+            secs.append(time.perf_counter() - t0)
+            hws.append("x".join(map(str, b["images"].shape[1:3])))
+        print(f"loader: batch_at(k) host seconds {[round(x, 4) for x in secs]} (mean "
+              f"{np.mean(secs):.4f}) for the run's {total} batches, padded to {hws}; "
+              f"{int(b['valid'].sum())} valid instances in the last", flush=True)
+        # a process's first batch of a shape pays for its first kernels and
+        # allocations: s/iter at the shapes the process had already run
+        seen, again = {}, []
+        for r, hw in zip(train, hws):
+            proc = r["iteration"] > TRAIN_ITERS
+            if hw in seen.setdefault(proc, set()):
+                again.append(r["sec_per_iter"])
+            seen[proc].add(hw)
+        print("s/iter by batch shape: " + ", ".join(
+            f"{r['iteration']}: {hw} {r['sec_per_iter']:.4f}" for r, hw in zip(train, hws))
+            + (f"; at a shape its process had run before: {np.mean(again):.4f} s/iter "
+               f"({len(again)} iterations)" if again else ""), flush=True)
+        for t in tests:
+            ap = {k: t[k] for k in ("AP", "AP50", "AP75", "APs", "APm", "APl", "AR1",
+                                    "AR10", "AR100")}
+            print(f"test after iteration {t['iteration']} ({card}): {t['videos']} video, "
+                  f"{t['clips']} clips, {t['predictions']} predictions in "
+                  f"{t['predict_s']:.3f} s -> {t['clips_per_s']:.3f} clips/s; host seconds: "
+                  f"RLE encoding {t['rle_s']:.4f}, evaluate {t['evaluate_s']:.4f}; AP (random "
+                  f"weights) {json.dumps({k: round(v, 4) for k, v in ap.items()})}", flush=True)
+            if not all(np.isfinite(t[k]) and 0.0 <= t[k] <= 100.0 for k in ("AP", "AP50")):
+                fail(f"AP out of [0, 100]: {ap}")
+        if tests[0]["predictions"] == 0:
+            fail("test of the initial weights predicted no track")
+        return fwd, bwd, test_fwd
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def trainer_model_cfg():
+    from mdqe_cvpr2023_tpu_torch.engine.build import build_model_cfg
+    from mdqe_cvpr2023_tpu_torch.engine.config import load_config
+    return build_model_cfg(load_config("configs/R50_ovis_360.yaml"))
+
+
+# tests/synth_dataset.py's TINY_OVERRIDES (the tiny model of
+# tests/test_trainer_e2e.py), dropout 0
+TINY_TRAINER = [
+    "MODEL.MDQE.HIDDEN_DIM", "64", "MODEL.MDQE.NHEADS", "4",
+    "MODEL.MDQE.ENC_LAYERS", "1", "MODEL.MDQE.DEC_LAYERS", "1",
+    "MODEL.MDQE.NUM_OBJECT_QUERIES", "16", "MODEL.MDQE.QUERY_EMBED_DIM", "8",
+    "MODEL.MDQE.NUM_CLASSES", "1", "MODEL.MDQE.MAX_NUM_INSTANCES", "6",
+    "MODEL.MDQE.SAMPLING_FRAME_NUM_TEST", "2", "MODEL.MDQE.WINDOW_FRAME_NUM_TEST", "4",
+    "INPUT.SAMPLING_FRAME_NUM", "2", "INPUT.MIN_SIZE_TRAIN", "[64]",
+    "INPUT.MAX_SIZE_TRAIN", "64", "INPUT.MIN_SIZE_TEST", "64", "INPUT.CROP.ENABLED", "False",
+    "DATASETS.TRAIN", "[ytvis_ovis_train]", "DATASETS.TEST", "[ytvis_ovis_dev]",
+    "SOLVER.IMS_PER_BATCH", "2", "TEST.EVAL_PERIOD", "0", "DATALOADER.NUM_WORKERS", "0",
+    "MODEL.MDQE.DROPOUT", "0.0",
+]
+
+
+def tiny_trainer_card_vs_cpu():
+    """The tiny Trainer on the card and on the port's CPU path, from the same
+    seed and dataset: the loader's batches bit-equal; the losses of both
+    training steps within rtol 1e-4 (the card takes its second step from the
+    CPU's checkpoint after the first); ``test`` of the card's trained weights
+    (fp32 encode on both sides) by the VIS rule: the same tracks and labels,
+    scores within 5e-3, mask IoU >= 0.99; the AP within 0.5 points. Then the
+    native RLE codec against the Python codec on 200 random masks."""
+    from mdqe_cvpr2023_tpu_torch.data import rle
+    from mdqe_cvpr2023_tpu_torch.engine.config import load_config
+    from mdqe_cvpr2023_tpu_torch.engine.trainer import Trainer
+    tmp = tempfile.mkdtemp(prefix="mdqe_tiny_")
+    try:
+        write_ovis_dataset(tmp, (64, 96), train_frames=(6, 8), dev_frames=7, num_classes=1,
+                           seed=1)
+        trainers = {}
+        for dev in ("cpu", "cuda"):
+            cfg = load_config("configs/R50_ovis_360.yaml",
+                              TINY_TRAINER + ["OUTPUT_DIR", os.path.join(tmp, dev)])
+            tr = Trainer(cfg, datasets_root=tmp, device=dev)
+            batches = [tr.build_train_loader().batch_at(k) for k in range(3)]
+            tr.train(max_iter=1, log_every=1)
+            # the second step from one state on both, the CPU's (the same in
+            # every run): Adam's first step moves a weight by about
+            # lr * sign(g), so gradient rounding noise (and the card's
+            # d(value) atomics, whose order varies between runs) leaves two
+            # trainings' weights up to ~0.2 lr apart, near a tie of the
+            # matching costs at times
+            if dev == "cuda":
+                tr.load_checkpoint(os.path.join(tmp, "cpu", "ckpt_0000001.pth"))
+            tr.train(max_iter=2, log_every=1)
+            trainers[dev] = (tr, batches)
+        # both test the card's trained weights, fp32 encode
+        trained = {k: v.cpu() for k, v in trainers["cuda"][0].model.state_dict().items()}
+        res = {}
+        for dev, (tr, batches) in trainers.items():
+            tr.model.load_state_dict(trained)
+            tr.inf_cfg = dataclasses.replace(tr.inf_cfg, bf16_encode=False)
+            metrics, preds = tr.test(max_videos=1)
+            rows = [json.loads(l) for l in open(os.path.join(tmp, dev, "metrics.jsonl"))]
+            res[dev] = (batches, rows, metrics, preds)
+        (bg, rg, mg, pg), (bc, rc, mc, pc) = res["cuda"], res["cpu"]
+        for k, (a, b) in enumerate(zip(bg, bc)):
+            for key in b:
+                if a[key].dtype != b[key].dtype or not np.array_equal(a[key], b[key]):
+                    fail(f"loader batch {k} differs between the two trainers at {key}")
+        loss_err, worst = 0.0, []
+        for step, (a, b) in enumerate(zip(rg[:2], rc[:2]), start=1):
+            keys = [k for k in b if k == "total_loss" or k.startswith("loss_")]
+            errs = {k: abs(a[k] - b[k]) / max(abs(b[k]), 1e-12) for k in keys}
+            k = max(errs, key=errs.get)
+            worst.append(f"step {step}: total {errs['total_loss']:.2e}, worst {k} {a[k]:.6g} "
+                         f"vs {b[k]:.6g}")
+            loss_err = max(loss_err, errs[k])
+        labels_ok = len(pg) == len(pc) and [p["category_id"] for p in pg] == [
+            p["category_id"] for p in pc]
+        score_err = (max(abs(a["score"] - b["score"]) for a, b in zip(pg, pc))
+                     if labels_ok and pg else float("inf"))
+        ious = []
+        for a, b in zip(pg, pc):
+            ma = np.stack([rle.decode(s) for s in a["segmentations"]]).astype(bool)
+            mb = np.stack([rle.decode(s) for s in b["segmentations"]]).astype(bool)
+            ious.append(np.logical_and(ma, mb).sum() / max(np.logical_or(ma, mb).sum(), 1))
+        ap_err = abs(mg["AP"] - mc["AP"])
+        print(f"tiny Trainer card vs CPU: 3 loader batches bit-equal; losses of 2 steps (the "
+              f"second from the CPU's checkpoint on both) max rel err {loss_err:.2e} (tol "
+              f"1e-4; {'; '.join(worst)}); test: {len(pg)} vs {len(pc)} predictions, labels "
+              f"{'equal' if labels_ok else 'differ'}, max|score err| {score_err:.2e} (tol 5e-3), "
+              f"min mask IoU {min(ious) if ious else 1.0:.4f} (tol 0.99); AP {mg['AP']:.3f} vs "
+              f"{mc['AP']:.3f} (tol 0.5); card launches in the test "
+              f"{json.dumps(rg[-1]['msda_launches']['fwd'])}", flush=True)
+        if (loss_err > 1e-4 or not labels_ok or not pg or score_err > 5e-3
+                or (ious and min(ious) < 0.99) or not ap_err <= 0.5):
+            fail("the tiny Trainer on the card disagrees with the CPU path")
+        if min(rg[-1]["msda_launches"]["fwd"].values()) == 0:
+            fail("the tiny Trainer's test did not launch the forward kernel at every site")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    lib = rle.load_native()
+    if not lib:
+        fail("the native RLE codec did not build or load")
+    rng = np.random.default_rng(5)
+    for i in range(200):
+        h, w = int(rng.integers(1, 400)), int(rng.integers(1, 700))
+        m = np.zeros((h, w), bool)
+        for _ in range(int(rng.integers(0, 6))):
+            y, x = int(rng.integers(0, h)), int(rng.integers(0, w))
+            m[y:y + int(rng.integers(1, h + 1)), x:x + int(rng.integers(1, w + 1))] = True
+        m ^= rng.random((h, w)) < 0.01 * (i % 3)
+        counts = rle._runs(m.reshape(-1, order="F"))
+        s = rle.counts_to_string(counts)
+        if s != rle.counts_to_string_py(counts) or not np.array_equal(
+                rle.string_to_counts(s), rle.string_to_counts_py(s)):
+            fail(f"the native RLE codec disagrees with the Python codec on mask {i}")
+        if not np.array_equal(rle.decode(rle.encode(m)), m):
+            fail(f"RLE round trip failed on mask {i}")
+    print(f"native RLE codec {os.path.basename(lib._name)} equals the Python codec on 200 "
+          "random masks (strings and counts), round trips exact", flush=True)
 
 
 def check_outputs(out, n_frames, hw, num_classes):
@@ -1158,6 +1510,12 @@ def main():
     phase("tiny training step: the card's path against the port's CPU path")
     tiny_train_card_vs_cpu(torch)
 
+    # ---- 6b. the train/test entry point ------------------------------------------
+    phase(f"main path: the Trainer at full width ({card})")
+    trainer_fwd, trainer_bwd, trainer_test_fwd = trainer_full_width(card)
+    phase("tiny Trainer: the card's path against the port's CPU path")
+    tiny_trainer_card_vs_cpu()
+
     # ---- 7. the kernel tools ------------------------------------------------------
     phase(f"main path: the kernel tools' sweeps ({card})")
     tune_rows, probe_rows, tc_rows, tc_launches = tool_paths(da, tdk, pbp, pmk)
@@ -1174,6 +1532,17 @@ def main():
     for site, t in bwd_timings.items():
         kernels.append(kernel_entry(f"ms_deform_attn_bwd[{site}]", SOURCE, BWD_REPLACES,
                                     train_bwd_launches[site], bwd_max_err[site], t))
+    # the Trainer's steps (buckets up to 512x800: timed at 512x800) and its test
+    # (the VIS sites' shapes)
+    for site, t in train_fwd_timings.items():
+        kernels.append(kernel_entry(f"ms_deform_attn_fwd[{site},trainer]", SOURCE,
+                                    f"{PALLAS}:121", trainer_fwd[site], train_fwd_err[site], t))
+    for site, t in bwd_timings.items():
+        kernels.append(kernel_entry(f"ms_deform_attn_bwd[{site},trainer]", SOURCE,
+                                    BWD_REPLACES, trainer_bwd[site], bwd_max_err[site], t))
+    for site, t in timings.items():
+        kernels.append(kernel_entry(f"ms_deform_attn_fwd[{site},trainer_test]", SOURCE,
+                                    t["replaces"], trainer_test_fwd[site], max_err[site], t))
     for site, t in coco_timings.items():
         line = 569 if site == "encoder" else 121
         kernels.append(kernel_entry(f"ms_deform_attn_fwd[{site},coco]", SOURCE,

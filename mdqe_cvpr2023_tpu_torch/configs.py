@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import math
 
+from .data.image import size_for_test
 from .models.detr import MDQEModelCfg
 from .models.meta import InferenceCfg
 
@@ -31,7 +32,4 @@ def coco_test_size(h: int, w: int):
     """The (h, w) an image of size (h, w) is resized to for COCO testing: the
     short side to ``COCO_MIN_SIZE_TEST`` unless the long side would pass
     ``COCO_MAX_SIZE_TEST`` (``Trainer.test_coco`` of the JAX package)."""
-    scale = COCO_MIN_SIZE_TEST / min(h, w)
-    if max(h, w) * scale > COCO_MAX_SIZE_TEST:
-        scale = COCO_MAX_SIZE_TEST / max(h, w)
-    return int(round(h * scale)), int(round(w * scale))
+    return size_for_test(h, w, COCO_MIN_SIZE_TEST, COCO_MAX_SIZE_TEST)

@@ -176,18 +176,20 @@ def detr_apply_coco(detr: DeformableDETR, images, image_sizes, n_frames: int):
                                 is_coco=True)
 
 
-# The ResNet stages frozen in training: Detectron2's MODEL.BACKBONE.FREEZE_AT
-# 2, the stem and res2 (``frozen_leaf_mask(params, freeze_at=2)`` of the JAX
-# package). The other leaves that the JAX mask freezes (FrozenBN statistics,
-# the decoder's sampling grid, ``lvl_spatial_scales``) are buffers here and
-# never train.
+# The ResNet stages frozen in training, by Detectron2's MODEL.BACKBONE.FREEZE_AT
+# (``frozen_leaf_mask(params, freeze_at)`` of the JAX package): 0 or less
+# freezes none, 1 the stem, 2 or more the stem and res2. The other leaves that
+# the JAX mask freezes (FrozenBN statistics, the decoder's sampling grid,
+# ``lvl_spatial_scales``) are buffers here and never train.
 FROZEN_STAGES = ("stem", "res2")
 
 
-def is_frozen(name: str) -> bool:
+def is_frozen(name: str, freeze_at: int = 2) -> bool:
     """Whether the parameter ``name`` (under ``MDQEModel``) is frozen in
-    training: it lies in one of ``FROZEN_STAGES``."""
-    return any(name.startswith(f"detr.backbone.0.backbone.{s}.") for s in FROZEN_STAGES)
+    training at ``freeze_at``: it lies in one of the first
+    ``clip(freeze_at, 0, 2)`` stages of ``FROZEN_STAGES``."""
+    stages = FROZEN_STAGES[:max(min(int(freeze_at), 2), 0)]
+    return any(name.startswith(f"detr.backbone.0.backbone.{s}.") for s in stages)
 
 
 class MDQEModel(nn.Module):
@@ -208,12 +210,12 @@ class MDQEModel(nn.Module):
     def device(self) -> torch.device:
         return next(self.parameters()).device
 
-    def set_trainable(self) -> None:
-        """Training form: every parameter takes gradients except the frozen
-        ResNet stages (``is_frozen``). The model stays usable for inference
-        (``inference_vis`` runs under ``torch.inference_mode``)."""
+    def set_trainable(self, freeze_at: int = 2) -> None:
+        """Training form: every parameter takes gradients except the ResNet
+        stages frozen at ``freeze_at`` (``is_frozen``). The model stays usable
+        for inference (``inference_vis`` runs under ``torch.inference_mode``)."""
         for name, p in self.named_parameters():
-            p.requires_grad_(not is_frozen(name))
+            p.requires_grad_(not is_frozen(name, freeze_at))
 
     @torch.no_grad()
     def reset_parameters(self, gen: torch.Generator):

@@ -7,6 +7,10 @@ name carries a hash of the source, so an edited source is rebuilt and an
 unchanged one is reused. Builds go to ``<repo>/build/kernels`` (listed in
 ``.gitignore``) at first use, never at import. The compiler's ``-Xptxas -v``
 report (registers, shared memory, spills) is kept beside each library.
+
+Host code in C++ (``<repo>/native/<name>.cc``, the RLE string codec) is built
+the same way by the host C++ compiler into ``<repo>/build/host``
+(``build_host``).
 """
 from __future__ import annotations
 
@@ -22,6 +26,9 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+NATIVE = Path(__file__).resolve().parents[2] / "native"
+HOST_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "host"
+CXX_FLAGS = ["-O2", "-shared", "-fPIC"]
 
 _LOADED: dict = {}
 
@@ -85,6 +92,36 @@ def build(name: str) -> Path:
 def ptxas_report(name: str) -> str:
     """The ``-Xptxas -v`` output of the last build of ``name``."""
     return build(name).with_suffix(".ptxas.txt").read_text()
+
+
+def _cxx() -> str:
+    for cand in (os.environ.get("CXX"), "c++", "g++", "clang++"):
+        found = cand and shutil.which(cand)
+        if found:
+            return found
+    raise RuntimeError("no host C++ compiler (c++, g++ or clang++) found")
+
+
+def build_host(name: str) -> Path:
+    """Compile ``<repo>/native/<name>.cc`` with the host C++ compiler into
+    ``build/host/lib<name>_<source hash>.so`` unless it exists; return its
+    path. A failed or missing compiler raises ``RuntimeError``."""
+    src = NATIVE / f"{name}.cc"
+    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
+    lib = HOST_BUILD_DIR / f"lib{name}_{digest}.so"
+    if lib.exists():
+        return lib
+    HOST_BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=HOST_BUILD_DIR)
+    os.close(fd)
+    proc = subprocess.run([_cxx(), *CXX_FLAGS, "-o", tmp, str(src)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"c++ failed ({proc.returncode}) for {src}:\n"
+                           f"{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, lib)
+    return lib
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -27,9 +27,16 @@ class TrainCfg:
     backbone_multiplier: float = 0.1
     clip_norm: float = 0.01
     steps: Tuple[int, ...] = (10000,)
+    max_iter: int = 12000
     warmup_iters: int = 10
     warmup_factor: float = 1.0
     gamma: float = 0.1
+    # Detectron2's MODEL.BACKBONE.FREEZE_AT: 1 freezes the ResNet stem, 2 the
+    # stem and res2 (``models/detr.py::is_frozen``)
+    freeze_at: int = 2
+    # SOLVER.AMP.ENABLED: the bf16 step is not ported (the backward kernel
+    # takes fp32 only); ``make_optimizer`` raises when it is set
+    amp: bool = False
 
 
 def lr_factor(tc: TrainCfg, step: int) -> float:
@@ -57,15 +64,20 @@ def clip_by_global_norm_(grads, max_norm: float):
 class _Optimizer:
     """AdamW in two groups, ``backbone`` (x``backbone_multiplier`` LR) and the
     rest, weight decay on both. The model is put in its training form
-    (``MDQEModel.set_trainable``): the frozen set (the frozen ResNet stages;
-    the JAX package's other frozen leaves are buffers here) is in neither
-    group and never changes. ``step`` first gives every trainable
-    parameter without a gradient a zero one (optax decays those weights
-    too), clips the global norm, sets the scheduled LR, then steps AdamW."""
+    (``MDQEModel.set_trainable``): the frozen set (the ResNet stages frozen
+    at ``TrainCfg.freeze_at``; the JAX package's other frozen leaves are
+    buffers here) is in neither group and never changes. ``step`` first gives
+    every trainable parameter without a gradient a zero one (optax decays
+    those weights too), clips the global norm, sets the scheduled LR, then
+    steps AdamW."""
 
     def __init__(self, model: MDQEModel, tc: TrainCfg):
+        if tc.amp:
+            raise NotImplementedError(
+                "AMP training is not ported (ROADMAP queue 1, item 6): the "
+                "deformable-attention backward kernel has no bf16 form yet")
         self.tc = tc
-        model.set_trainable()
+        model.set_trainable(tc.freeze_at)
         backbone, rest = [], []
         for name, p in model.named_parameters():
             if p.requires_grad:
@@ -124,26 +136,29 @@ def _relpos(n_query: int, device: str) -> torch.Tensor:
 
 
 def loss_fn(model: MDQEModel, crit_cfg: CriterionCfg, batch, generator=None,
-            dropout_rate: float = 0.1, reid_priorities=None):
+            dropout_rate: float = 0.1, reid_priorities=None,
+            match_stride: int = MATCH_STRIDE, pixel_mean=PIXEL_MEAN, pixel_std=PIXEL_STD):
     """The loss of ``make_train_step``: images (BT,Hp,Wp,3) raw uint8 (or
     float) normalized on the device, the training forward with dropout from
     ``generator``, the criterion. Returns (total, the weighted losses)."""
     images = batch["images"]
     dev = images.device
-    mean = torch.tensor(PIXEL_MEAN, dtype=torch.float32, device=dev)
-    std = torch.tensor(PIXEL_STD, dtype=torch.float32, device=dev)
+    mean = torch.tensor(pixel_mean, dtype=torch.float32, device=dev)
+    std = torch.tensor(pixel_std, dtype=torch.float32, device=dev)
     images = (images.float() - mean) / std
     out = detr_apply_backbone(model.detr, images, batch["image_sizes"],
                               crit_cfg.n_frames, dropout_rate, generator)
     match_masks, masks8 = prepare_targets_device(batch["masks"], images.shape[1:3],
-                                                 MATCH_STRIDE)
+                                                 match_stride)
     targets = {"labels": batch["labels"], "ids": batch["ids"], "boxes": batch["boxes"],
                "valid": batch["valid"], "match_masks": match_masks, "masks8": masks8}
     return criterion_apply(crit_cfg, out, targets, _relpos(crit_cfg.n_query, str(dev)),
                            generator, reid_priorities)
 
 
-def make_train_step(crit_cfg: CriterionCfg, dropout_rate: float = 0.1):
+def make_train_step(crit_cfg: CriterionCfg, dropout_rate: float = 0.1,
+                    match_stride: int = MATCH_STRIDE, pixel_mean=PIXEL_MEAN,
+                    pixel_std=PIXEL_STD):
     """Returns ``train_step(model, optimizer, batch, generator,
     reid_priorities=None) -> (total, loss_dict)``: one optimizer step. The
     batch's tensors and ``generator`` (dropout masks and reid priorities) are
@@ -157,7 +172,7 @@ def make_train_step(crit_cfg: CriterionCfg, dropout_rate: float = 0.1):
         torch.backends.cudnn.allow_tf32 = False
         optimizer.zero_grad()
         total, ldict = loss_fn(model, crit_cfg, batch, generator, dropout_rate,
-                               reid_priorities)
+                               reid_priorities, match_stride, pixel_mean, pixel_std)
         total.backward()
         optimizer.step()
         return total.detach(), {k: v.detach() for k, v in ldict.items()}

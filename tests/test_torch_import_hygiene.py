@@ -64,3 +64,11 @@ def test_importing_the_port_loads_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_scan_covers_the_data_and_engine_subpackages():
+    mods = set(_modules())
+    for m in ("data.rle", "data.ytvis_eval", "data.dataset", "data.augmentation",
+              "data.builtin", "data.categories", "data.image", "engine.config",
+              "engine.build", "engine.checkpoint", "engine.trainer", "train_net"):
+        assert f"mdqe_cvpr2023_tpu_torch.{m}" in mods, m

@@ -116,3 +116,42 @@ def test_entry_points_raise_without_card():
         pytest.skip("a card is present: the default device is valid")
     with pytest.raises(RuntimeError, match="CUDA"):
         MDQEModel(MDQEModelCfg(**MODEL_KW))
+
+
+def test_tail_clip_decodes_the_clamped_frames_as_jax(jax_params, port_model, monkeypatch):
+    """Pins the mirrored tail-clip behaviour (ROADMAP, "Faults found"): 9
+    frames, clips of 2 at stride 2, windows of 4. The tail clip is shifted
+    back to frames 7-8 and is the first clip of its window [8, 9), so its
+    offset -1 is clamped to 0 and it decodes frame 8 twice, in the JAX
+    package's dynamic_slice and in the port alike."""
+    def decoded(offsets, window_len, ws, we):
+        offs = [min(max(int(o), 0), window_len - 2) for o in offsets]
+        return [[min(ws + o + t, we - 1) for t in range(2)] for o in offs]
+
+    port_calls, jax_calls = [], []
+    t_decode, j_decode = tmeta.decode_clips_batched, jmeta._decode_clips_batched
+
+    def t_spy(model, enc, mflat, maskf, offsets, *args, **kw):
+        port_calls.append((list(offsets), enc.shape[0]))
+        return t_decode(model, enc, mflat, maskf, offsets, *args, **kw)
+
+    def j_spy(params, cfg, enc, mflat, maskf, offsets, *args, **kw):
+        jax_calls.append((np.asarray(offsets).tolist(), enc.shape[0]))
+        return j_decode(params, cfg, enc, mflat, maskf, offsets, *args, **kw)
+
+    monkeypatch.setattr(tmeta, "decode_clips_batched", t_spy)
+    monkeypatch.setattr(jmeta, "_decode_clips_batched", j_spy)
+    video = np.random.default_rng(0).integers(0, 255, (9, 60, 62, 3)).astype(np.uint8)
+    frames, _ = tmeta.preprocess_frames(video)
+    jmeta.inference_vis(jax_params, JaxModelCfg(**MODEL_KW), jmeta.InferenceCfg(**INF_KW),
+                        frames, image_size=(60, 62), ori_size=(60, 62))
+    tmeta.inference_vis(port_model, tmeta.InferenceCfg(**INF_KW), frames,
+                        image_size=(60, 62), ori_size=(60, 62), device="cpu")
+    windows = [(0, 4), (4, 8), (8, 9)]
+    assert len(port_calls) == len(jax_calls) == len(windows)
+    # the real clips of each group (the rest pad the batch of 8)
+    n_real = [2, 2, 1]
+    got = [decoded(o[:n], L, *w) for (o, L), n, w in zip(port_calls, n_real, windows)]
+    want = [decoded(o[:n], L, *w) for (o, L), n, w in zip(jax_calls, n_real, windows)]
+    assert got == want == [[[0, 1], [2, 3]], [[4, 5], [6, 7]], [[8, 8]]]
+    assert jax_calls[-1][0][0] == -1 and port_calls[-1][0][0] == 0
