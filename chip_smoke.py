@@ -50,6 +50,19 @@ Phases (each exits non-zero on failure; none is caught and continued):
      and evaluation; then the tiny Trainer on the card against the port's CPU
      path (loader batches, losses, test predictions, AP) and the native RLE
      codec against the Python one;
+  6c. Swin-L (configs/swinl_*.yaml, random weights, drop path 0.2 in
+     training) through the same three paths at full width, the kernels'
+     call shapes recorded on the way: inference_vis at the swinl_ovis
+     geometry (2-frame clips, 20-frame windows) on a 36-frame 480x854 video
+     (35 clips; the crowded tracker too), a small Swin video against the CPU
+     path; inference_image at 800x1216; the training step at 2 clips x 2
+     frames of 736x1024 (s/step, peak memory, launches, finite and falling
+     loss, frozen leaves unchanged), a tiny Swin step against the CPU path;
+     train_net with configs/swinl_ovis.yaml for 2 iterations ending in
+     test; then the forward kernel at every recorded call shape against its
+     plain version and the backward kernel against autograd of the plain
+     version at the training shapes, each timed (eager, graph replay) beside
+     the plain version, the grid_sample form and the bound;
   7. the kernel tools' sweeps (block sizes, gather probe, tensor-core depth),
      each problem with the launch counts set to 0 before it and read after
      it;
@@ -62,6 +75,8 @@ Usage: python3 chip_smoke.py   (needs one CUDA card; runs from the checkout)
        python3 chip_smoke.py --bwd-split [SOURCE]   (the backward kernel's time
        split into its d(value) scatter and the rest; see bwd_split)
 """
+import collections
+import contextlib
 import dataclasses
 import json
 import os
@@ -252,12 +267,21 @@ def expected_train_launches(cfg):
             "decoder_inst": cfg.dec_layers * cfg.n_feature_levels}
 
 
-def train_full_width(torch, da, card, bwd_timings):
-    """The training step at full width; returns the forward and backward
-    launch counts of its timed steps."""
+def train_full_width(torch, da, card, bwd_timings=None, swin=False):
+    """The training step at full width, R50 (``TRAIN_CFG``: 2 clips x 4
+    frames of 512x800) or Swin-L (``configs.SWINL_OVIS``: 2 clips x 2 frames of
+    736x1024, drop path 0.2): s/step, peak memory, launches, finite losses, a
+    lower loss after a few steps, frozen leaves unchanged. Returns the
+    forward and backward launch counts of its timed steps."""
     from mdqe_cvpr2023_tpu_torch.models.detr import MDQEModel
     from mdqe_cvpr2023_tpu_torch.parallel import train as ptrain
-    cfg = ptrain.TRAIN_CFG
+    if swin:
+        from mdqe_cvpr2023_tpu_torch import configs
+        cfg, crit = configs.SWINL_OVIS, ptrain.SWINL_TRAIN_CRIT
+        batch = ptrain.synthetic_batch(seed=0, frames=ptrain.SWINL_FRAMES,
+                                       hp=ptrain.SWINL_HP, wp=ptrain.SWINL_WP)
+    else:
+        cfg, crit, batch = ptrain.TRAIN_CFG, ptrain.TRAIN_CRIT, ptrain.synthetic_batch(seed=0)
     t0 = time.perf_counter()
     model = MDQEModel(cfg, device="cuda", seed=0)
     # the JAX package's loss-decrease settings (tests/test_train_step.py)
@@ -265,8 +289,8 @@ def train_full_width(torch, da, card, bwd_timings):
                                                        clip_norm=1.0))
     trainable = {n for n, p in model.named_parameters() if p.requires_grad}
     frozen = {k: v.clone() for k, v in model.state_dict().items() if k not in trainable}
-    step = ptrain.make_train_step(ptrain.TRAIN_CRIT)
-    batch = ptrain.to_device(ptrain.synthetic_batch(seed=0), "cuda")
+    step = ptrain.make_train_step(crit)
+    batch = ptrain.to_device(batch, "cuda")
     gen = torch.Generator(device="cuda").manual_seed(0)
     print(f"model {sum(p.numel() for p in model.parameters()) / 1e6:.1f} M parameters "
           f"({len(trainable)} trainable tensors, {len(frozen)} frozen or buffers); "
@@ -300,8 +324,10 @@ def train_full_width(torch, da, card, bwd_timings):
     print(f"launches in {n_steps} steps: forward {json.dumps(fwd)}, backward {json.dumps(bwd)}")
     print(f"total loss per step {[round(t, 4) for t in totals]}")
     print(f"losses {json.dumps({k: round(float(v), 4) for k, v in ldict.items()})}")
-    share = sum(bwd_timings[s]["ms"] * n for s, n in bwd.items()) / n_steps / (s_step * 1e3)
-    print(f"backward kernel at its timed per-launch cost: {share:.1%} of the step", flush=True)
+    if bwd_timings is not None:
+        share = sum(bwd_timings[s]["ms"] * n for s, n in bwd.items()) / n_steps / (s_step * 1e3)
+        print(f"backward kernel at its timed per-launch cost: {share:.1%} of the step",
+              flush=True)
 
     want = {k: n_steps * v for k, v in expected_train_launches(cfg).items()}
     if fwd != want or bwd != want:
@@ -320,8 +346,9 @@ def train_full_width(torch, da, card, bwd_timings):
     return fwd, bwd
 
 
-def tiny_train_card_vs_cpu(torch):
-    """One training step of the tiny configuration on the card and on the
+def tiny_train_card_vs_cpu(torch, tiny=None):
+    """One training step of the tiny configuration (R50 unless ``tiny`` is
+    given; drop path 0 in a Swin one) on the card and on the
     port's CPU path, dropout 0, the same reid priorities. Tolerances (those of
     tests/test_torch_train_step.py against JAX): losses rtol 1e-4; the global
     gradient norm rtol 1e-4; per trainable leaf max |err| <= 0.1 s + 1e-6 G
@@ -335,9 +362,9 @@ def tiny_train_card_vs_cpu(torch):
     from mdqe_cvpr2023_tpu_torch.parallel import train as ptrain
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    tiny = MDQEModelCfg(backbone="resnet50", num_classes=5, hidden_dim=64, n_heads=4,
-                        enc_layers=1, dec_layers=1, n_frames=2, n_query=16,
-                        query_embed_dim=8, dec_temporal=True)
+    tiny = tiny or MDQEModelCfg(backbone="resnet50", num_classes=5, hidden_dim=64, n_heads=4,
+                                enc_layers=1, dec_layers=1, n_frames=2, n_query=16,
+                                query_embed_dim=8, dec_temporal=True)
     crit = CriterionCfg(num_classes=5, n_frames=2, n_query=16, num_points=64)
     tc = ptrain.TrainCfg()
     batch = ptrain.synthetic_batch(seed=1, clips=2, frames=2, hp=128, wp=128, slots=3,
@@ -378,7 +405,8 @@ def tiny_train_card_vs_cpu(torch):
     diffs = np.concatenate([np.abs(pg[k] - pc[k]).ravel() for k in trainable]) / lr
     frozen_diff = max(float(np.abs(pg[k] - pc[k]).max()) for k in pc if k not in trainable)
     q99, q999 = np.quantile(diffs, [0.99, 0.999])
-    print(f"tiny step card vs CPU: losses max rel err {loss_err:.2e} (tol 1e-4); grad norm "
+    print(f"tiny step ({tiny.backbone}) card vs CPU: losses max rel err {loss_err:.2e} "
+          f"(tol 1e-4); grad norm "
           f"{norm_g:.6f} vs {norm_c:.6f} (rel {abs(norm_g - norm_c) / norm_c:.2e}, tol 1e-4); "
           f"per leaf worst max|err|/s {worst_rel:.2e} (tol 0.1), worst cosine "
           f"{worst_cos:.6f} (tol 0.9999); after one step |dparam|/lr q99 {q99:.2e} "
@@ -916,17 +944,18 @@ def coco_kernel_sites(da):
     return errs, timings
 
 
-def coco_full_width(da, card):
-    """COCO image inference at full width (R50 COCO, random weights from seed
-    0, the class head's bias zeroed so that scores pass the 0.05 threshold
-    and the 100-detection slab fills, as a trained model's would): one
-    800x1200 image padded to 800x1216, original size 480x720; a warm-up
-    image, then 5 timed ones, then one with stage timers. Returns the
-    launches of the timed images."""
+def coco_full_width(da, card, swin=False, n_images=5):
+    """COCO image inference at full width (R50 COCO, or Swin-L COCO with
+    ``swin``; random weights from seed 0, the class head's bias zeroed so
+    that scores pass the 0.05 threshold and the 100-detection slab fills, as
+    a trained model's would): one 800x1200 image padded to 800x1216, original
+    size 480x720; a warm-up image, then ``n_images`` timed ones, then one
+    with stage timers. Returns the launches of the timed images."""
     from mdqe_cvpr2023_tpu_torch import configs
     from mdqe_cvpr2023_tpu_torch.models import meta
     from mdqe_cvpr2023_tpu_torch.models.detr import MDQEModel
-    cfg, inf = configs.R50_COCO, configs.R50_COCO_INF
+    cfg = configs.SWINL_COCO if swin else configs.R50_COCO
+    inf = configs.R50_COCO_INF  # swinl_coco.yaml keeps R50_coco.yaml's post-processing
     ori = (480, 720)
     size = configs.coco_test_size(*ori)
     t0 = time.perf_counter()
@@ -935,13 +964,13 @@ def coco_full_width(da, card):
         model.detr.transformer_dec.cls_embed.layers[-1].bias.zero_()
     img = np.random.default_rng(0).integers(0, 255, (1,) + size + (3,)).astype(np.uint8)
     frames, _ = meta.preprocess_frames(img)
-    print(f"COCO model built in {time.perf_counter() - t0:.1f} s; image {size} padded to "
+    print(f"COCO model ({cfg.backbone}) built in {time.perf_counter() - t0:.1f} s; image "
+          f"{size} padded to "
           f"{frames.shape[1:3]}, original size {ori}", flush=True)
     t0 = time.perf_counter()
     meta.inference_image(model, inf, frames, size, ori)
     torch.cuda.synchronize()
     print(f"warm-up image {time.perf_counter() - t0:.3f} s", flush=True)
-    n_images = 5
     torch.cuda.reset_peak_memory_stats()
     da.reset_launches()
     walls = []
@@ -1289,6 +1318,390 @@ def bwd_split(source):
         del v, lo, aw, gout, gv, gl, ga
 
 
+def vis_full_width(da, card, cfg, inf, n_frames, H, W, seed=0):
+    """``inference_vis`` at full width on a synthetic video of ``n_frames``
+    HxW frames, random weights from ``seed``: a warm-up run, a timed run with
+    stage timers (clips/s, host seconds per stage, peak memory, launches per
+    call site, all > 0), then the crowded tracker (gates off, threshold 0:
+    the tracker fills to max_num_instances). Returns the timed run's
+    launches."""
+    from mdqe_cvpr2023_tpu_torch.models import meta
+    from mdqe_cvpr2023_tpu_torch.models.detr import MDQEModel
+    from mdqe_cvpr2023_tpu_torch.tools.profile_vis import crowded
+    t0 = time.perf_counter()
+    model = MDQEModel(cfg, device="cuda", seed=seed)
+    print(f"model ({cfg.backbone}) built on the card in {time.perf_counter() - t0:.1f} s "
+          f"({sum(p.numel() for p in model.parameters()) / 1e6:.1f} M parameters)")
+    video = np.random.default_rng(0).integers(0, 255, (n_frames, H, W, 3)).astype(np.uint8)
+    frames, _ = meta.preprocess_frames(video)
+    print(f"video {n_frames}x{H}x{W} padded to {frames.shape[1:3]}; levels "
+          f"{meta.spatial_shapes_for(cfg, frames.shape[1:3])}", flush=True)
+    t0 = time.perf_counter()
+    meta.inference_vis(model, inf, frames, (H, W), (H, W))
+    torch.cuda.synchronize()
+    print(f"warm-up run {time.perf_counter() - t0:.2f} s")
+
+    torch.cuda.reset_peak_memory_stats()
+    timers = {}
+    da.reset_launches()
+    t0 = time.perf_counter()
+    out = meta.inference_vis(model, inf, frames, (H, W), (H, W), timers=timers)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(da.LAUNCHES)
+    n_clips = (n_frames - inf.n_frames_test) // inf.clip_stride + 1
+    stages = {k: round(v, 4) for k, v in timers.items() if not k.endswith("_n")}
+    print(f"timed run {wall:.3f} s, {n_clips} clips -> {n_clips / wall:.3f} clips/s "
+          f"({card})")
+    print(f"stage host seconds (each ends in synchronize): {json.dumps(stages)}")
+    print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(f"launches per call site: {json.dumps(launches)}")
+    print(f"tracks {out['num_tracks']}, outputs {len(out['pred_scores'])}, "
+          f"top scores {[round(s, 4) for s in out['pred_scores'][:5]]}", flush=True)
+    for site, n in launches.items():
+        if n == 0:
+            fail(f"the main path never launched the kernel at {site}")
+    check_outputs(out, n_frames, (H, W), cfg.num_classes)
+
+    # Random weights make near-identical detections, which the reference gates
+    # (0.99 dedup, repeat suppression) collapse to a few tracks. With the gates
+    # off and threshold 0 the tracker fills to max_num_instances, so the
+    # occupancy-dependent work (assignment, finalize) is exercised too.
+    crowd = crowded(inf)
+    meta.inference_vis(model, crowd, frames, (H, W), (H, W))
+    crowd_timers = {}
+    t0 = time.perf_counter()
+    out_c = meta.inference_vis(model, crowd, frames, (H, W), (H, W),
+                               timers=crowd_timers)
+    torch.cuda.synchronize()
+    wall_c = time.perf_counter() - t0
+    print(f"crowded tracker: {out_c['num_tracks']} tracks, {wall_c:.3f} s -> "
+          f"{n_clips / wall_c:.3f} clips/s; stage host seconds "
+          f"{json.dumps({k: round(v, 4) for k, v in crowd_timers.items() if not k.endswith('_n')})}",
+          flush=True)
+    check_outputs(out_c, n_frames, (H, W), cfg.num_classes)
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def vis_small_card_vs_cpu(da, tiny):
+    """``inference_vis`` of a small video (9 frames of 60x62) with the tiny
+    configuration ``tiny`` on the card and on the port's CPU path, fp32
+    encode: the same tracks and labels, scores within 5e-3, mask IoU >= 0.99;
+    every call site launched on the card."""
+    from mdqe_cvpr2023_tpu_torch.models import meta
+    from mdqe_cvpr2023_tpu_torch.models.detr import MDQEModel
+    tiny_inf = meta.InferenceCfg(clip_stride=2, n_frames_test=2, n_frames_window_test=4,
+                                 max_num_instances=20, apply_cls_thres=0.05,
+                                 clip_topk=8, encode_chunk=2, num_classes=tiny.num_classes,
+                                 bf16_encode=False)
+    hw = (60, 62)
+    small = np.random.default_rng(1).integers(0, 255, (9,) + hw + (3,)).astype(np.uint8)
+    small_frames, _ = meta.preprocess_frames(small)
+    m_gpu = MDQEModel(tiny, device="cuda", seed=3)
+    m_cpu = MDQEModel(tiny, device="cpu", seed=3)
+    da.reset_launches()
+    got = meta.inference_vis(m_gpu, tiny_inf, small_frames, hw, hw)
+    if min(da.LAUNCHES.values()) == 0:
+        fail(f"small run did not reach every kernel call site: {da.LAUNCHES}")
+    want = meta.inference_vis(m_cpu, tiny_inf, small_frames, hw, hw, device="cpu")
+    check_outputs(got, 9, hw, tiny.num_classes)
+    ious = [np.logical_and(a, b).sum() / max(np.logical_or(a, b).sum(), 1)
+            for a, b in zip(got["pred_masks"], want["pred_masks"])]
+    score_err = float(np.max(np.abs(np.subtract(got["pred_scores"], want["pred_scores"])))) \
+        if len(got["pred_scores"]) == len(want["pred_scores"]) else float("inf")
+    print(f"{tiny.backbone}: tracks {got['num_tracks']} vs {want['num_tracks']}, outputs "
+          f"{len(got['pred_scores'])} vs {len(want['pred_scores'])}, max|score err| "
+          f"{score_err:.2e}, min mask IoU {min(ious) if ious else 1.0:.4f}", flush=True)
+    if (got["num_tracks"] != want["num_tracks"] or got["pred_labels"] != want["pred_labels"]
+            or score_err > 5e-3 or (ious and min(ious) < 0.99)):
+        fail("the card's output disagrees with the CPU path on the small input")
+    del m_gpu, m_cpu
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# Swin-L: the three paths at full width, the kernel at their call shapes
+# ---------------------------------------------------------------------------
+
+# a tiny Swin for the card-vs-CPU checks: 4 stages (strides 8 / 16 / 32 as
+# Swin-L's), embed 32, heads 2-4-8-16, window 4
+SWIN_TINY = dict(embed_dim=32, depths=(2, 2, 2, 2), num_heads=(2, 4, 8, 16), window_size=4)
+SWINL_VIS_HW = (480, 854)  # configs/swinl_ovis.yaml's test size of a 16:9 video
+
+
+def swin_tiny_cfg(n_frames, num_classes):
+    from mdqe_cvpr2023_tpu_torch.models.detr import MDQEModelCfg
+    from mdqe_cvpr2023_tpu_torch.models.swin import SwinCfg
+    return MDQEModelCfg(backbone="swin_tiny", swin=SwinCfg(**SWIN_TINY),
+                        num_classes=num_classes, hidden_dim=64, n_heads=4, enc_layers=1,
+                        dec_layers=1, n_frames=n_frames, n_query=16, query_embed_dim=8,
+                        window_inter_frame_asso=5, dec_temporal=True)
+
+
+@contextlib.contextmanager
+def recorded_sites(da):
+    """While active, the forward and backward kernels' call shapes per site,
+    as {"fwd": {site: Counter(key)}, "bwd": ...} with key (B, Q, H, D, P,
+    shapes, value type): the shapes the main path gives each kernel."""
+    seen = {"fwd": {}, "bwd": {}}
+    fwd, bwd = da.ms_deform_attn_cuda, da.ms_deform_attn_bwd_cuda
+
+    def record(kind, site, value, shapes, loc):
+        if site is not None:
+            B, _, H, D = value.shape
+            key = (B, loc.shape[1], H, D, loc.shape[4],
+                   tuple((int(h), int(w)) for h, w in shapes), str(value.dtype)[6:])
+            seen[kind].setdefault(site, collections.Counter())[key] += 1
+
+    def fwd_spy(value, shapes, loc, attw, site=None):
+        record("fwd", site, value, shapes, loc)
+        return fwd(value, shapes, loc, attw, site)
+
+    def bwd_spy(value, shapes, loc, attw, gout, site=None):
+        record("bwd", site, value, shapes, loc)
+        return bwd(value, shapes, loc, attw, gout, site)
+
+    da.ms_deform_attn_cuda, da.ms_deform_attn_bwd_cuda = fwd_spy, bwd_spy
+    try:
+        yield seen
+    finally:
+        da.ms_deform_attn_cuda, da.ms_deform_attn_bwd_cuda = fwd, bwd
+
+
+def site_inputs(site, key, seed, grad=False):
+    """Inputs of the kernel at a recorded call shape: encoder-like locations
+    (each query's pixel centre plus offsets) at the encoder, uniform ones at
+    the decoder sites; with ``grad`` an output gradient too (fp32)."""
+    B, Q, H, D, P, shapes, vdt = key
+    mode = "local" if site == "encoder" else "uniform"
+    if grad:
+        return bwd_inputs(torch, B, Q, H, D, P, shapes, mode, seed)
+    return make_inputs(torch, B, Q, H, D, P, shapes, mode, getattr(torch, vdt), seed)
+
+
+def _weighted(rows):
+    """Launch-weighted means of the per-shape timings of one site."""
+    n = sum(c for c, _ in rows)
+    out = {k: sum(c * t[k] for c, t in rows) / n
+           for k in ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms")}
+    out["bound_by"] = max(rows, key=lambda r: r[0])[1]["bound_by"]
+    return out
+
+
+def swin_fwd_sites(da, path, seen, card):
+    """The forward kernel at every call shape ``seen`` on a Swin-L path,
+    against its plain version (1e-4 with an fp32 value, 1e-3 with bf16, as at
+    the R50 shapes) and timed (CUDA events, wrapper included; CUDA-graph
+    replay) beside the plain version, the grid_sample form and the bound.
+    Returns max |err| and the launch-weighted timings per site."""
+    errs, timings = {}, {}
+    for i, (site, keys) in enumerate(sorted(seen.items())):
+        rows = []
+        for j, (key, count) in enumerate(keys.most_common()):
+            B, Q, H, D, P, shapes, vdt = key
+            v, lo, aw = site_inputs(site, key, seed=500 + 10 * i + j)
+            got = da.ms_deform_attn_cuda(v, shapes, lo, aw)
+            want = da.ms_deform_attn_plain(v, shapes, lo, aw)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            tol = 1e-3 if vdt == "bfloat16" else 1e-4
+            errs[site] = max(errs.get(site, 0.0), err)
+            if not (err <= tol and bool(torch.isfinite(got).all())):
+                fail(f"forward kernel disagrees with its plain version at {path} {site} "
+                     f"{key}: {err:.2e}")
+            t = dict(ms=measure.time_ms(lambda: da.ms_deform_attn_cuda(v, shapes, lo, aw), 20),
+                     device_ms=measure.graph_ms(
+                         lambda: da.ms_deform_attn_cuda(v, shapes, lo, aw), 20),
+                     plain_ms=measure.time_ms(
+                         lambda: da.ms_deform_attn_plain(v, shapes, lo, aw), 2),
+                     library_ms=measure.time_ms(
+                         lambda: measure.grid_sample_msda(v, shapes, lo, aw), 2))
+            t["bound_ms"], t["bound_by"], nbytes = measure.msda_bound(v, shapes, lo, aw)
+            rows.append((count, t))
+            print(f"{path} fwd {site:12s} B={B} Q={Q} H={H} D={D} P={P} L={len(shapes)} "
+                  f"{shapes[0][0]}x{shapes[0][1]}.. {vdt}: {count} launches | max|err| "
+                  f"{err:.2e} (tol {tol:.0e}) | kernel {t['ms']:.4f} ms (graph replay "
+                  f"{t['device_ms']:.4f} ms) | plain {t['plain_ms']:.3f} ms | grid_sample "
+                  f"form {t['library_ms']:.3f} ms | bound {t['bound_ms'] * 1e3:.1f} us by "
+                  f"{t['bound_by']} ({nbytes / 1e6:.1f} MB) ({card})", flush=True)
+            del got, want, v, lo, aw
+        timings[site] = _weighted(rows)
+    return errs, timings
+
+
+def swin_bwd_sites(da, seen, card):
+    """The backward kernel at every call shape of the Swin-L training step,
+    against autograd of the plain version (1e-4 of each gradient's largest
+    entry, at least 1e-4, as at the R50 shapes), timed (eager with its zeroed
+    d(value), and graph replay) beside the plain backward, the grid_sample
+    form's backward and the bound. Returns max |err| and the timings per
+    site."""
+    errs, timings = {}, {}
+    for i, (site, keys) in enumerate(sorted(seen.items())):
+        rows = []
+        for j, (key, count) in enumerate(keys.most_common()):
+            B, Q, H, D, P, shapes, _ = key
+            v, lo, aw, gout = site_inputs(site, key, seed=600 + 10 * i + j, grad=True)
+            got = da.ms_deform_attn_bwd_cuda(v, shapes, lo, aw, gout)
+            leaves, out, want = grads_of(
+                torch, lambda a, b, c: da.ms_deform_attn_plain(a, shapes, b, c),
+                v, lo, aw, gout, retain=True)
+            torch.cuda.synchronize()
+            worst = 0.0
+            for name, g, w in zip(("value", "loc", "attw"), got, want):
+                err = float((g - w).abs().max())
+                tol = 1e-4 * max(1.0, float(w.abs().max()))
+                worst = max(worst, err)
+                if not (err <= tol and bool(torch.isfinite(g).all())):
+                    fail(f"backward kernel disagrees with autograd of the plain version at "
+                         f"the Swin-L training {site} {key}: d{name} {err:.2e} (tol {tol:.1e})")
+            errs[site] = max(errs.get(site, 0.0), worst)
+            del got, want
+            t = dict(ms=measure.time_ms(
+                         lambda: da.ms_deform_attn_bwd_cuda(v, shapes, lo, aw, gout), 10),
+                     device_ms=measure.graph_ms(
+                         lambda: da.ms_deform_attn_bwd_cuda(v, shapes, lo, aw, gout), 10),
+                     plain_ms=measure.time_ms(lambda: torch.autograd.grad(
+                         out, leaves, gout, retain_graph=True), 2))
+            del out, leaves
+            leaves, out, _ = grads_of(
+                torch, lambda a, b, c: measure.grid_sample_msda(a, shapes, b, c),
+                v, lo, aw, gout, retain=True)
+            t["library_ms"] = measure.time_ms(lambda: torch.autograd.grad(
+                out, leaves, gout, retain_graph=True), 2)
+            del out, leaves
+            t["bound_ms"], t["bound_by"], nbytes, _ = measure.msda_bwd_bound(v, shapes, lo, aw)
+            rows.append((count, t))
+            print(f"swinl_train bwd {site:12s} B={B} Q={Q} L={len(shapes)} "
+                  f"{shapes[0][0]}x{shapes[0][1]}..: {count} launches | max|err| {worst:.2e} | "
+                  f"kernel {t['ms']:.4f} ms (graph replay {t['device_ms']:.4f} ms) | plain "
+                  f"backward {t['plain_ms']:.3f} ms | grid_sample form backward "
+                  f"{t['library_ms']:.3f} ms | bound {t['bound_ms'] * 1e3:.1f} us by "
+                  f"{t['bound_by']} ({nbytes / 1e6:.1f} MB) ({card})", flush=True)
+            del v, lo, aw, gout
+        timings[site] = _weighted(rows)
+    return errs, timings
+
+
+# the Swin-L Trainer's cuts: those of TRAINER_CUTS (one card, the repository's
+# data, random weights) on configs/swinl_ovis.yaml
+SWIN_TRAINER_CUTS = [
+    cut if cut[0] != "SOLVER.IMS_PER_BATCH" else
+    (cut[0], cut[1], "8 clips of 2 frames at up to 736x1024 do not fit one card: the "
+     "step of 2 clips peaks at 50.8 GiB on an 80 GB H100") for cut in TRAINER_CUTS]
+SWIN_TRAINER_ITERS = 2
+
+
+def swin_trainer(card):
+    """``train_net --config-file configs/swinl_ovis.yaml`` at full width with
+    the cuts of SWIN_TRAINER_CUTS: SWIN_TRAINER_ITERS iterations with 2
+    loader threads on a synthetic OVIS dataset of 360x640 frames (resized to
+    the 608 / 736 x 1024 buckets), a checkpoint, then ``test`` on the
+    36-frame dev video (resized to 480x853). Returns the launches per call
+    site: training forward, backward, test forward."""
+    from mdqe_cvpr2023_tpu_torch.engine.build import build_model_cfg
+    from mdqe_cvpr2023_tpu_torch.engine.config import load_config
+    config = "configs/swinl_ovis.yaml"
+    tmp = tempfile.mkdtemp(prefix="mdqe_swin_trainer_")
+    try:
+        write_ovis_dataset(tmp, (360, 640), train_frames=(24, 30), dev_frames=36,
+                           num_classes=25, seed=2)
+        print("reduced: " + "; ".join(f"{k} {v} ({why})" for k, v, why in SWIN_TRAINER_CUTS),
+              flush=True)
+        out = os.path.join(tmp, "out")
+        opts = [x for k, v, _ in SWIN_TRAINER_CUTS for x in (k, v)] + ["OUTPUT_DIR", out]
+        rows = run_train_net(["--config-file", config, "--datasets-root", tmp,
+                              "--max-videos", "1", "--log-every", "1", "--max-iter",
+                              str(SWIN_TRAINER_ITERS)] + opts, out)
+        train = [r for r in rows if "test" not in r]
+        tests = [r for r in rows if "test" in r]
+        if [r["iteration"] for r in train] != list(range(1, SWIN_TRAINER_ITERS + 1)) \
+                or len(tests) != 1:
+            fail(f"metrics rows {[(r['iteration'], 'test' in r) for r in rows]}")
+        fwd = {s: sum(r["msda_launches"]["fwd"][s] for r in train)
+               for s in train[0]["msda_launches"]["fwd"]}
+        bwd = {s: sum(r["msda_launches"]["bwd"][s] for r in train) for s in fwd}
+        test_fwd = tests[0]["msda_launches"]["fwd"]
+        t = tests[0]
+        print(f"Swin-L Trainer ({card}): s/iter {[round(r['sec_per_iter'], 4) for r in train]}, "
+              f"data_wait_frac {[round(r['data_wait_frac'], 4) for r in train]}, losses "
+              f"{[round(r['total_loss'], 4) for r in train]}, peak device memory "
+              f"{max(r['max_mem_gib'] for r in rows):.2f} GiB; launches forward "
+              f"{json.dumps(fwd)}, backward {json.dumps(bwd)}; test: {t['clips']} clips, "
+              f"{t['predictions']} predictions, {t['clips_per_s']:.3f} clips/s, RLE "
+              f"{t['rle_s']:.4f} s, evaluate {t['evaluate_s']:.4f} s, AP {t['AP']:.4f}, "
+              f"launches {json.dumps(test_fwd)}", flush=True)
+        want = {k: SWIN_TRAINER_ITERS * v for k, v in
+                expected_train_launches(build_model_cfg(load_config(config, opts))).items()}
+        if fwd != want or bwd != want:
+            fail(f"Swin-L trainer launches {fwd} / {bwd}, want {want} each")
+        if min(test_fwd.values()) == 0 or any(t["msda_launches"]["bwd"].values()):
+            fail(f"Swin-L test launches {t['msda_launches']}")
+        if not all(np.isfinite(r["total_loss"]) for r in train) or not (
+                np.isfinite(t["AP"]) and 0.0 <= t["AP"] <= 100.0):
+            fail("non-finite Swin-L training loss or AP out of [0, 100]")
+        return fwd, bwd, test_fwd
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def swin_paths(da, card):
+    """Swin-L through the port's three paths at full width, each driven with
+    the launch counts set to 0 just before it and read just after, the
+    kernels' call shapes recorded; the small Swin checks against the CPU
+    path; the Trainer; then the kernels at the recorded shapes. Returns the
+    kernels line's Swin-L entries."""
+    from mdqe_cvpr2023_tpu_torch import configs
+    phase(f"main path: Swin-L inference_vis at full width ({card})")
+    with recorded_sites(da) as vis_seen:
+        vis_launches = vis_full_width(da, card, configs.SWINL_OVIS, configs.SWINL_OVIS_INF,
+                                      36, *SWINL_VIS_HW)
+    phase("small Swin input: the card's VIS path against the port's CPU path")
+    vis_small_card_vs_cpu(da, swin_tiny_cfg(2, 5))
+
+    phase(f"main path: Swin-L COCO image inference at full width ({card})")
+    with recorded_sites(da) as coco_seen:
+        coco_launches = coco_full_width(da, card, swin=True, n_images=1)
+
+    phase(f"main path: the Swin-L training step at full width ({card})")
+    with recorded_sites(da) as train_seen:
+        train_fwd, train_bwd = train_full_width(torch, da, card, swin=True)
+    phase("tiny Swin training step: the card's path against the port's CPU path")
+    tiny_train_card_vs_cpu(torch, swin_tiny_cfg(2, 5))
+
+    phase(f"main path: the Swin-L Trainer at full width ({card})")
+    trainer_fwd, trainer_bwd, trainer_test = swin_trainer(card)
+
+    phase(f"forward kernel at the Swin-L call shapes ({card})")
+    entries = []
+    for path, seen, launches in (("swinl_vis", vis_seen, vis_launches),
+                                 ("swinl_coco", coco_seen, coco_launches),
+                                 ("swinl_train", train_seen, train_fwd)):
+        errs, timings = swin_fwd_sites(da, path, seen["fwd"], card)
+        for site, t in timings.items():
+            line = 569 if site == "encoder" and path != "swinl_train" else 121
+            entries.append(kernel_entry(f"ms_deform_attn_fwd[{site},{path}]", SOURCE,
+                                        f"{PALLAS}:{line}", launches[site], errs[site], t))
+            if path == "swinl_train":
+                entries.append(kernel_entry(f"ms_deform_attn_fwd[{site},swinl_trainer]",
+                                            SOURCE, f"{PALLAS}:{line}", trainer_fwd[site],
+                                            errs[site], t))
+            if path == "swinl_vis":
+                entries.append(kernel_entry(f"ms_deform_attn_fwd[{site},swinl_trainer_test]",
+                                            SOURCE, f"{PALLAS}:{line}", trainer_test[site],
+                                            errs[site], t))
+    phase(f"backward kernel at the Swin-L training call shapes ({card})")
+    errs, timings = swin_bwd_sites(da, train_seen["bwd"], card)
+    for site, t in timings.items():
+        entries.append(kernel_entry(f"ms_deform_attn_bwd[{site},swinl_train]", SOURCE,
+                                    BWD_REPLACES, train_bwd[site], errs[site], t))
+        entries.append(kernel_entry(f"ms_deform_attn_bwd[{site},swinl_trainer]", SOURCE,
+                                    BWD_REPLACES, trainer_bwd[site], errs[site], t))
+    return entries
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a CUDA card")
@@ -1304,7 +1717,7 @@ def main():
     from mdqe_cvpr2023_tpu_torch.ops import _build
     from mdqe_cvpr2023_tpu_torch.ops import deform_attn as da
     from mdqe_cvpr2023_tpu_torch.models import meta
-    from mdqe_cvpr2023_tpu_torch.models.detr import MDQEModel, MDQEModelCfg
+    from mdqe_cvpr2023_tpu_torch.models.detr import MDQEModelCfg
     from mdqe_cvpr2023_tpu_torch.tools import probe_band_primitives as pbp
     from mdqe_cvpr2023_tpu_torch.tools import probe_mxu_kdepth as pmk
     from mdqe_cvpr2023_tpu_torch.tools import tune_deform_kernel as tdk
@@ -1412,91 +1825,13 @@ def main():
     inf = meta.InferenceCfg(clip_stride=1, n_frames_test=4, n_frames_window_test=30,
                             max_num_instances=120, apply_cls_thres=0.1,
                             clip_topk=150, encode_chunk=10, num_classes=25)
-    t0 = time.perf_counter()
-    model = MDQEModel(cfg, device="cuda", seed=0)
-    print(f"model built on the card in {time.perf_counter() - t0:.1f} s "
-          f"({sum(p.numel() for p in model.parameters()) / 1e6:.1f} M parameters)")
-    n_frames, H, W = 36, 360, 640
-    video = np.random.default_rng(0).integers(0, 255, (n_frames, H, W, 3)).astype(np.uint8)
-    frames, _ = meta.preprocess_frames(video)
-    t0 = time.perf_counter()
-    meta.inference_vis(model, inf, frames, (H, W), (H, W))
-    torch.cuda.synchronize()
-    print(f"warm-up run {time.perf_counter() - t0:.2f} s")
-
-    torch.cuda.reset_peak_memory_stats()
-    timers = {}
-    da.reset_launches()
-    t0 = time.perf_counter()
-    out = meta.inference_vis(model, inf, frames, (H, W), (H, W), timers=timers)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dict(da.LAUNCHES)
-    n_clips = (n_frames - inf.n_frames_test) // inf.clip_stride + 1
-    stages = {k: round(v, 4) for k, v in timers.items() if not k.endswith("_n")}
-    print(f"timed run {wall:.3f} s, {n_clips} clips -> {n_clips / wall:.3f} clips/s "
-          f"({card})")
-    print(f"stage host seconds (each ends in synchronize): {json.dumps(stages)}")
-    print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    print(f"launches per call site: {json.dumps(launches)}")
-    print(f"tracks {out['num_tracks']}, outputs {len(out['pred_scores'])}, "
-          f"top scores {[round(s, 4) for s in out['pred_scores'][:5]]}", flush=True)
-    for site, n in launches.items():
-        if n == 0:
-            fail(f"the main path never launched the kernel at {site}")
-    check_outputs(out, n_frames, (H, W), cfg.num_classes)
-
-    # Random weights make near-identical detections, which the reference gates
-    # (0.99 dedup, repeat suppression) collapse to a few tracks. With the gates
-    # off and threshold 0 the tracker fills to max_num_instances, so the
-    # occupancy-dependent work (assignment, finalize) is exercised too.
-    crowd = dataclasses.replace(inf, apply_cls_thres=0.0, dedup_sim=2.0,
-                                suppress_siou=2.0, suppress_ctt=2.0)
-    meta.inference_vis(model, crowd, frames, (H, W), (H, W))
-    crowd_timers = {}
-    t0 = time.perf_counter()
-    out_c = meta.inference_vis(model, crowd, frames, (H, W), (H, W),
-                               timers=crowd_timers)
-    torch.cuda.synchronize()
-    wall_c = time.perf_counter() - t0
-    print(f"crowded tracker: {out_c['num_tracks']} tracks, {wall_c:.3f} s -> "
-          f"{n_clips / wall_c:.3f} clips/s; stage host seconds "
-          f"{json.dumps({k: round(v, 4) for k, v in crowd_timers.items() if not k.endswith('_n')})}",
-          flush=True)
-    check_outputs(out_c, n_frames, (H, W), cfg.num_classes)
+    launches = vis_full_width(da, card, cfg, inf, 36, 360, 640)
 
     phase("small input: the card's path against the port's CPU path")
     tiny = MDQEModelCfg(backbone="resnet50", num_classes=5, hidden_dim=64, n_heads=4,
                         enc_layers=1, dec_layers=1, n_frames=2, n_query=16,
                         query_embed_dim=8, dec_temporal=True)
-    tiny_inf = meta.InferenceCfg(clip_stride=2, n_frames_test=2, n_frames_window_test=4,
-                                 max_num_instances=20, apply_cls_thres=0.05,
-                                 clip_topk=8, encode_chunk=2, num_classes=5,
-                                 bf16_encode=False)
-    small = np.random.default_rng(1).integers(0, 255, (9, 60, 62, 3)).astype(np.uint8)
-    small_frames, _ = meta.preprocess_frames(small)
-    m_gpu = MDQEModel(tiny, device="cuda", seed=3)
-    m_cpu = MDQEModel(tiny, device="cpu", seed=3)
-    da.reset_launches()
-    got = meta.inference_vis(m_gpu, tiny_inf, small_frames, (60, 62), (60, 62))
-    if min(da.LAUNCHES.values()) == 0:
-        fail(f"small run did not reach every kernel call site: {da.LAUNCHES}")
-    want = meta.inference_vis(m_cpu, tiny_inf, small_frames, (60, 62), (60, 62),
-                              device="cpu")
-    check_outputs(got, 9, (60, 62), tiny.num_classes)
-    ious = [np.logical_and(a, b).sum() / max(np.logical_or(a, b).sum(), 1)
-            for a, b in zip(got["pred_masks"], want["pred_masks"])]
-    score_err = float(np.max(np.abs(np.subtract(got["pred_scores"], want["pred_scores"])))) \
-        if len(got["pred_scores"]) == len(want["pred_scores"]) else float("inf")
-    print(f"tracks {got['num_tracks']} vs {want['num_tracks']}, outputs "
-          f"{len(got['pred_scores'])} vs {len(want['pred_scores'])}, max|score err| "
-          f"{score_err:.2e}, min mask IoU {min(ious) if ious else 1.0:.4f}", flush=True)
-    if (got["num_tracks"] != want["num_tracks"] or got["pred_labels"] != want["pred_labels"]
-            or score_err > 5e-3 or (ious and min(ious) < 0.99)):
-        fail("the card's output disagrees with the CPU path on the small input")
-
-    del model, m_gpu, m_cpu
-    torch.cuda.empty_cache()
+    vis_small_card_vs_cpu(da, tiny)
 
     # ---- 5b. COCO image inference -------------------------------------------
     phase(f"main path: COCO image inference at full width ({card})")
@@ -1515,6 +1850,9 @@ def main():
     trainer_fwd, trainer_bwd, trainer_test_fwd = trainer_full_width(card)
     phase("tiny Trainer: the card's path against the port's CPU path")
     tiny_trainer_card_vs_cpu()
+
+    # ---- 6c. Swin-L -----------------------------------------------------------------
+    swin_entries = swin_paths(da, card)
 
     # ---- 7. the kernel tools ------------------------------------------------------
     phase(f"main path: the kernel tools' sweeps ({card})")
@@ -1547,6 +1885,7 @@ def main():
         line = 569 if site == "encoder" else 121
         kernels.append(kernel_entry(f"ms_deform_attn_fwd[{site},coco]", SOURCE,
                                     f"{PALLAS}:{line}", coco_launches[site], coco_err[site], t))
+    kernels += swin_entries
     for r in tune_rows:  # each level's own launches and error
         key = f"{r['value']}_t{r['threads']}"
         kernels.append(kernel_entry(f"ms_deform_attn_fwd[tune,{r['level']},{key}]", SOURCE,

@@ -11,18 +11,33 @@ import math
 from ..losses.criterion import CriterionCfg
 from ..models.detr import MDQEModelCfg
 from ..models.meta import InferenceCfg
+from ..models.swin import SwinCfg
 from ..parallel.train import TrainCfg
 from .config import CfgNode
 
 
 def build_model_cfg(cfg: CfgNode) -> MDQEModelCfg:
+    """A Swin backbone (MODEL.BACKBONE.NAME holding "swin") takes its preset
+    name from MODEL.SWIN.TYPE and its configuration from MODEL.SWIN; it is v2
+    only when the name holds "swinv2" (build_swin_backbone builds v1)."""
     name = cfg.MODEL.BACKBONE.NAME
+    swin = None
     if "swin" in name.lower():
-        raise NotImplementedError(
-            f"backbone {name}: Swin is not ported (ROADMAP queue 1, item 5)")
+        sw = cfg.MODEL.SWIN
+        backbone = f"swin_{sw.TYPE}"
+        swin = SwinCfg(embed_dim=sw.EMBED_DIM, depths=tuple(sw.DEPTHS),
+                       num_heads=tuple(sw.NUM_HEADS), window_size=sw.WINDOW_SIZE,
+                       patch_size=sw.get("PATCH_SIZE", 4),
+                       version=2 if "swinv2" in name.lower() else 1,
+                       drop_path_rate=float(sw.get("DROP_PATH_RATE", 0.0)),
+                       ape=bool(sw.get("APE", False)),
+                       pretrain_img_size=int(sw.get("PRETRAIN_IMG_SIZE", 224)))
+    else:
+        backbone = f"resnet{cfg.MODEL.RESNETS.DEPTH}"
     m = cfg.MODEL.MDQE
     return MDQEModelCfg(
-        backbone=f"resnet{cfg.MODEL.RESNETS.DEPTH}",
+        backbone=backbone,
+        swin=swin,
         num_classes=m.NUM_CLASSES,
         hidden_dim=m.HIDDEN_DIM,
         n_heads=m.NHEADS,

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -22,11 +22,13 @@ from ..utils.nn import GroupNorm, position_embedding_sine
 from .decoder import DecoderCfg, TransformerDecoder, encoded_to_maps
 from .encoder import EncoderCfg, TransformerEncoder, flatten_levels
 from .resnet import ResNet
+from .swin import SWIN_PRESETS, SwinCfg, SwinTransformer
 
 
 @dataclass(frozen=True)
 class MDQEModelCfg:
-    backbone: str = "resnet50"  # resnet50 / resnet101 (Swin is not ported yet)
+    backbone: str = "resnet50"  # resnet50 / resnet101 or swin_{tiny,small,base,large}
+    swin: Optional[SwinCfg] = None  # the Swin configuration (the preset otherwise)
     num_classes: int = 80
     hidden_dim: int = 256
     n_heads: int = 8
@@ -47,11 +49,32 @@ class MDQEModelCfg:
     def backbone_channels(self) -> Tuple[int, ...]:
         if self.backbone in ("resnet50", "resnet101"):
             return (512, 1024, 2048)  # res3, res4, res5
-        raise NotImplementedError(f"backbone {self.backbone} is not ported")
+        if self.backbone.startswith("swin"):
+            sc = self.swin_cfg
+            return tuple(sc.stage_dim(i) for i in sc.emit_stages)
+        raise ValueError(f"unknown backbone {self.backbone}")
+
+    @property
+    def swin_cfg(self) -> SwinCfg:
+        if self.swin is not None:
+            return self.swin
+        return SWIN_PRESETS[self.backbone[len("swin_"):]]
 
     @property
     def feature_strides(self) -> Tuple[int, ...]:
+        if self.backbone.startswith("swin"):
+            sc = self.swin_cfg
+            return tuple(sc.patch_size * 2 ** i for i in sc.emit_stages)
         return (8, 16, 32)
+
+    @property
+    def level_strides(self) -> Tuple[int, ...]:
+        """The strides of the ``n_feature_levels`` pyramid levels: the
+        backbone's, then each extra level at twice the one before."""
+        strides = list(self.feature_strides)[:self.n_feature_levels]
+        while len(strides) < self.n_feature_levels:
+            strides.append(strides[-1] * 2)
+        return tuple(strides)
 
     @property
     def encoder_cfg(self) -> EncoderCfg:
@@ -85,8 +108,11 @@ def padding_masks(image_sizes, padded_hw: Tuple[int, int], strides: Sequence[int
 class MaskedBackbone(nn.Module):
     def __init__(self, cfg: MDQEModelCfg):
         super().__init__()
-        cfg.backbone_channels  # raises for backbones that are not ported
-        self.backbone = ResNet(int(cfg.backbone[len("resnet"):]))
+        cfg.backbone_channels  # raises for an unknown backbone
+        if cfg.backbone.startswith("swin"):
+            self.backbone = SwinTransformer(cfg.swin_cfg)
+        else:
+            self.backbone = ResNet(int(cfg.backbone[len("resnet"):]))
 
 
 class DeformableDETR(nn.Module):
@@ -114,17 +140,16 @@ class DeformableDETR(nn.Module):
         return detr_encode(self, images, image_sizes)
 
 
-def detr_backbone_features(detr: DeformableDETR, images, image_sizes):
+def detr_backbone_features(detr: DeformableDETR, images, image_sizes, generator=None):
     """images (BT,Hp,Wp,3) normalized; image_sizes (BT,2). Returns per-level
     projected features (BT,h,w,C), padding masks (BT,h,w) and sine positions
-    (BT,h,w,C), all channel-last."""
+    (BT,h,w,C), all channel-last. ``generator`` (training) draws a Swin
+    backbone's stochastic depth."""
     cfg = detr.cfg
     x = images.permute(0, 3, 1, 2)                  # NHWC -> NCHW for cuDNN
-    feats = detr.backbone[0].backbone(x)
-    strides = list(cfg.feature_strides)
-    for _ in range(cfg.n_feature_levels - len(feats)):
-        strides.append(strides[-1] * 2)
-    masks = padding_masks(image_sizes, tuple(images.shape[1:3]), strides)
+    backbone = detr.backbone[0].backbone
+    feats = backbone(x, generator) if isinstance(backbone, SwinTransformer) else backbone(x)
+    masks = padding_masks(image_sizes, tuple(images.shape[1:3]), cfg.level_strides)
     srcs = []
     for i, proj in enumerate(detr.input_proj):
         if i < len(feats):
@@ -139,8 +164,11 @@ def detr_backbone_features(detr: DeformableDETR, images, image_sizes):
 def detr_encode(detr: DeformableDETR, images, image_sizes, drop_rate: float = 0.0,
                 generator=None):
     """Backbone + input projections + deformable encoder for a batch of frames.
-    Returns (encoded (BT,N,C), mask_flat (BT,N), spatial_shapes)."""
-    srcs, masks, pos = detr_backbone_features(detr, images, image_sizes)
+    Returns (encoded (BT,N,C), mask_flat (BT,N), spatial_shapes). With a
+    ``generator`` (training) the encoder's dropout draws from it at
+    ``drop_rate``, and a Swin backbone's stochastic depth at its own rates
+    whatever ``drop_rate`` is, as the JAX package's step does."""
+    srcs, masks, pos = detr_backbone_features(detr, images, image_sizes, generator)
     encoded = detr.transformer_enc(srcs, masks, pos, drop_rate, generator)
     _, mask_flat, _, spatial_shapes = flatten_levels(srcs, masks)
     return encoded, mask_flat, spatial_shapes
@@ -157,8 +185,9 @@ def detr_apply_backbone(detr: DeformableDETR, images, image_sizes, n_frames: int
     """The training forward, encode + decode (``detr_apply_backbone(...,
     training=True)`` of the JAX package), fp32. images (BT,Hp,Wp,3)
     normalized. Returns the decoder's training dict
-    (``TransformerDecoder.forward_train``); dropout at ``drop_rate`` draws
-    from ``generator`` and is off without one."""
+    (``TransformerDecoder.forward_train``); dropout at ``drop_rate`` and a
+    Swin backbone's stochastic depth draw from ``generator`` and are off
+    without one."""
     encoded, mask_flat, spatial_shapes = detr_encode(detr, images, image_sizes,
                                                      drop_rate, generator)
     return detr.transformer_dec.forward_train(encoded.float(), mask_flat,
@@ -180,7 +209,8 @@ def detr_apply_coco(detr: DeformableDETR, images, image_sizes, n_frames: int):
 # (``frozen_leaf_mask(params, freeze_at)`` of the JAX package): 0 or less
 # freezes none, 1 the stem, 2 or more the stem and res2. The other leaves that
 # the JAX mask freezes (FrozenBN statistics, the decoder's sampling grid,
-# ``lvl_spatial_scales``) are buffers here and never train.
+# ``lvl_spatial_scales``) are buffers here and never train. A Swin backbone
+# has no such stage: nothing of it is frozen.
 FROZEN_STAGES = ("stem", "res2")
 
 

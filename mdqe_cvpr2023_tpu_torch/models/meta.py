@@ -32,6 +32,8 @@ from .detr import MDQEModel, MDQEModelCfg, detr_apply_coco, detr_mask_feats
 S_BATCH = 8                 # clips of one window decoded together
 FINALIZE_CHUNK = 8          # rows per mask-finalize call
 COCO_ROW_CHUNK = 28         # queries whose full-size mask logits exist at once
+# the parameters and buffers cast to bf16 under bf16_encode; a Swin backbone's
+# shape constants (bias index, CPB table, shift masks) are neither and stay fp32
 ENCODE_PREFIXES = ("backbone.", "input_proj.", "transformer_enc.")
 
 
@@ -72,9 +74,10 @@ def preprocess_frames(frames_u8, size_divisibility: int = 32):
 
 
 def spatial_shapes_for(model_cfg: MDQEModelCfg, padded_hw) -> Tuple[Tuple[int, int], ...]:
+    """The pyramid levels' (h, w) for padded frames: ceil(Hp / s) at each of
+    ``model_cfg.level_strides`` (the backbone's strides and the extra level)."""
     Hp, Wp = padded_hw
-    strides = [8, 16, 32, 64][:model_cfg.n_feature_levels]
-    return tuple((-(-Hp // s), -(-Wp // s)) for s in strides)
+    return tuple((-(-Hp // s), -(-Wp // s)) for s in model_cfg.level_strides)
 
 
 def postprocess_clip(cls_probs, mask_coeff, query_embeds, mask_feats,

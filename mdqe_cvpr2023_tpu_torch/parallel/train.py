@@ -62,8 +62,10 @@ def clip_by_global_norm_(grads, max_norm: float):
 
 
 class _Optimizer:
-    """AdamW in two groups, ``backbone`` (x``backbone_multiplier`` LR) and the
-    rest, weight decay on both. The model is put in its training form
+    """AdamW in two groups, ``backbone`` (x``backbone_multiplier`` LR: every
+    ResNet or Swin leaf) and the rest, weight decay on both (as optax's
+    adamw, on every leaf: norms, biases, Swin's logit scales and bias tables
+    too). The model is put in its training form
     (``MDQEModel.set_trainable``): the frozen set (the ResNet stages frozen
     at ``TrainCfg.freeze_at``; the JAX package's other frozen leaves are
     buffers here) is in neither group and never changes. ``step`` first gives
@@ -189,6 +191,12 @@ TRAIN_CFG = MDQEModelCfg(backbone="resnet50", num_classes=25, hidden_dim=256, n_
                          query_embed_dim=64, dec_temporal=True)
 TRAIN_CRIT = CriterionCfg(num_classes=25, n_frames=4, n_query=196)
 CLIPS, HP, WP, SLOTS = 2, 512, 800, 20
+
+# The full-width Swin-L training geometry on one card: configs/swinl_ovis.yaml's
+# model (``configs.SWINL_OVIS``: Swin-L v2, drop path 0.2, 2-frame clips) at its
+# largest bucket (MIN_SIZE_TRAIN 736, MAX_SIZE_TRAIN 1024), 2 clips, 20 slots, fp32.
+SWINL_TRAIN_CRIT = CriterionCfg(num_classes=25, n_frames=2, n_query=196)
+SWINL_FRAMES, SWINL_HP, SWINL_WP = 2, 736, 1024
 
 
 def synthetic_batch(seed: int = 0, clips: int = CLIPS, frames: int = 4, hp: int = HP,

@@ -4,8 +4,10 @@
 Runs the training step at the full-width R50 training geometry (the largest
 bucket of ``configs/R50_ovis_360.yaml`` scaled to one card: 2 clips of 4
 frames, 512x800 padded frames, 20 instance slots, 25 classes; hidden 256, 8
-heads, 6+6 layers, 196 queries; fp32, TF32 off) on a synthetic batch from a
-seed, with random weights. Prints s/step and clips/s on the host clock (steps
+heads, 6+6 layers, 196 queries; fp32, TF32 off), or with ``--backbone swinl``
+at the Swin-L one (``configs/swinl_ovis.yaml``'s largest bucket: 2 clips of 2
+frames of 736x1024, Swin-L v2 with drop path 0.2), on a synthetic batch from
+a seed, with random weights. Prints s/step and clips/s on the host clock (steps
 ending in a synchronize), peak device memory, and from steps run under
 ``torch.profiler``: the device-busy share (union of kernel intervals over the
 wall time), the kernels by total device time and the share of the
@@ -14,6 +16,7 @@ from one more step profiled with input shapes recorded (which costs host time,
 so it is kept out of the busy share), the operators by their own device time.
 
 Usage: python3 -m mdqe_cvpr2023_tpu_torch.tools.profile_train [--steps N]
+           [--backbone r50|swinl]
 """
 from __future__ import annotations
 
@@ -24,25 +27,34 @@ import time
 
 import torch
 
+from .. import configs
 from ..models.detr import MDQEModel
 from ..parallel import train as ptrain
-from ..parallel.train import CLIPS, TRAIN_CFG, TRAIN_CRIT, synthetic_batch, to_device
+from ..parallel.train import CLIPS, synthetic_batch, to_device
 from .profile_vis import _busy_and_kernels, device_events
 
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--steps", type=int, default=3, help="timed and profiled steps")
+    parser.add_argument("--backbone", choices=("r50", "swinl"), default="r50",
+                        help="the training geometry: R50 (TRAIN_CFG) or Swin-L")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader", "-i", "0"],
                           capture_output=True, text=True, check=True).stdout.strip()
-    model = MDQEModel(TRAIN_CFG, device="cuda", seed=0)
+    if args.backbone == "swinl":
+        cfg, crit = configs.SWINL_OVIS, ptrain.SWINL_TRAIN_CRIT
+        batch = synthetic_batch(frames=ptrain.SWINL_FRAMES, hp=ptrain.SWINL_HP,
+                                wp=ptrain.SWINL_WP)
+    else:
+        cfg, crit, batch = ptrain.TRAIN_CFG, ptrain.TRAIN_CRIT, synthetic_batch()
+    model = MDQEModel(cfg, device="cuda", seed=0)
     opt = ptrain.make_optimizer(model, ptrain.TrainCfg())
-    step = ptrain.make_train_step(TRAIN_CRIT)
-    batch = to_device(synthetic_batch(), "cuda")
+    step = ptrain.make_train_step(crit)
+    batch = to_device(batch, "cuda")
     gen = torch.Generator(device="cuda").manual_seed(0)
     step(model, opt, batch, gen)  # warm-up (cuDNN algorithm choice, allocator)
     torch.cuda.synchronize()
@@ -77,7 +89,7 @@ def main():
     top_ops = [(a.key, str(a.input_shapes)[:120], round(a.self_device_time_total / 1e3, 3),
                 a.count) for a in ops]
     print(json.dumps({
-        "card": card, "steps": args.steps, "s_per_step": walls,
+        "card": card, "backbone": cfg.backbone, "steps": args.steps, "s_per_step": walls,
         "clips_per_s": [CLIPS / w for w in walls],
         "peak_memory_gib": peak / 2 ** 30, "profiled_wall_s": prof_wall,
         "device_busy_share": busy if busy is not None else "not measured",

@@ -3,7 +3,9 @@
 
 Runs ``inference_vis`` at the full-width configuration of ``chip_smoke.py``
 (R50, hidden 256, 6+6 layers, 196 queries, 4-frame clips, 30-frame windows,
-360x640, random weights from a seed) on a 36-frame synthetic video, for the
+360x640; or with ``--backbone swinl`` ``configs/swinl_ovis.yaml``'s: Swin-L
+v2, 2-frame clips, 20-frame windows, 480x854; random weights from a seed) on
+a 36-frame synthetic video, for the
 reference gates and for the crowded tracker (gates off, the tracker fills to
 120 instances). For each it prints the wall time and clips/s, the host
 seconds per stage (each stage ending in a synchronize), and from one run under
@@ -15,6 +17,7 @@ Last, where the window encode's device time goes: one encode chunk
 call) profiled alone, by kernel.
 
 Usage: python3 -m mdqe_cvpr2023_tpu_torch.tools.profile_vis [--runs N]
+           [--backbone r50|swinl]
 """
 from __future__ import annotations
 
@@ -27,6 +30,7 @@ import time
 import numpy as np
 import torch
 
+from .. import configs
 from ..models import meta
 from ..models.detr import MDQEModel, MDQEModelCfg
 
@@ -36,8 +40,15 @@ CFG = MDQEModelCfg(backbone="resnet50", num_classes=25, hidden_dim=256, n_heads=
 INF = meta.InferenceCfg(clip_stride=1, n_frames_test=4, n_frames_window_test=30,
                         max_num_instances=120, apply_cls_thres=0.1, clip_topk=150,
                         encode_chunk=10, num_classes=25)
-CROWD = dataclasses.replace(INF, apply_cls_thres=0.0, dedup_sim=2.0,
-                            suppress_siou=2.0, suppress_ctt=2.0)
+# the model, inference configuration and frame size of each --backbone
+GEOMETRY = {"r50": (CFG, INF, (360, 640)),
+            "swinl": (configs.SWINL_OVIS, configs.SWINL_OVIS_INF, (480, 854))}
+
+
+def crowded(inf):
+    """The gates off and threshold 0: the tracker fills to max_num_instances."""
+    return dataclasses.replace(inf, apply_cls_thres=0.0, dedup_sim=2.0,
+                               suppress_siou=2.0, suppress_ctt=2.0)
 
 
 def device_events(prof):
@@ -107,18 +118,21 @@ def encode_breakdown(model, inf, frames, hw):
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--runs", type=int, default=3, help="timed runs per variant")
+    parser.add_argument("--backbone", choices=sorted(GEOMETRY), default="r50",
+                        help="the model and video geometry")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader", "-i", "0"],
                           capture_output=True, text=True, check=True).stdout.strip()
-    model = MDQEModel(CFG, device="cuda", seed=0)
-    n_frames, H, W = 36, 360, 640
+    cfg, inf0, (H, W) = GEOMETRY[args.backbone]
+    model = MDQEModel(cfg, device="cuda", seed=0)
+    n_frames = 36
     video = np.random.default_rng(0).integers(0, 255, (n_frames, H, W, 3)).astype(np.uint8)
     frames, _ = meta.preprocess_frames(video)
-    n_clips = n_frames - INF.n_frames_test + 1
-    for name, inf in (("reference gates", INF), ("crowded tracker", CROWD)):
+    n_clips = n_frames - inf0.n_frames_test + 1
+    for name, inf in (("reference gates", inf0), ("crowded tracker", crowded(inf0))):
         meta.inference_vis(model, inf, frames, (H, W), (H, W))  # warm-up
         walls = []
         for _ in range(args.runs):
@@ -140,7 +154,8 @@ def main():
         events = device_events(prof)
         dev_ms, fwd_ms = _device_ms(events), _device_ms(events, "msda_fwd")
         print(json.dumps({
-            "variant": name, "card": card, "tracks": out["num_tracks"],
+            "variant": name, "backbone": cfg.backbone, "card": card,
+            "tracks": out["num_tracks"],
             "wall_s": walls, "clips_per_s": [n_clips / w for w in walls],
             "stage_s": {k: v for k, v in timers.items() if not k.endswith("_n")},
             "profiled_wall_s": prof_wall,
@@ -149,7 +164,7 @@ def main():
             "msda_fwd_ms": fwd_ms if events else "not measured",
             "msda_fwd_share_of_device_time": fwd_ms / dev_ms if dev_ms else "not measured",
             "top_kernels_ms_count": top}), flush=True)
-    print(json.dumps({"card": card, "encode_chunk": encode_breakdown(model, INF, frames,
+    print(json.dumps({"card": card, "encode_chunk": encode_breakdown(model, inf0, frames,
                                                                      (H, W))}), flush=True)
 
 

@@ -98,6 +98,21 @@ def dropout(x, rate: float, generator=None):
     return x * keep / (1.0 - rate)
 
 
+def drop_path(x, rate: float, generator=None):
+    """Stochastic depth (timm's DropPath): each sample of the batch axis keeps
+    its whole residual branch with probability 1 - rate, scaled by
+    1 / (1 - rate), or loses it. Draws from ``generator`` (a
+    ``torch.Generator`` on x's device); identity when the rate is 0 or no
+    generator is given (eval), as the JAX package's ``drop_path`` is without
+    a key."""
+    if generator is None or rate <= 0.0:
+        return x
+    shape = (x.shape[0],) + (1,) * (x.ndim - 1)
+    keep = torch.empty(shape, dtype=x.dtype, device=x.device).bernoulli_(
+        1.0 - rate, generator=generator)
+    return x * keep / (1.0 - rate)
+
+
 # ---------------------------------------------------------------------------
 # parameter holders (state-dict names follow Detectron2 / torch.nn)
 # ---------------------------------------------------------------------------

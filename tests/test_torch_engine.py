@@ -46,13 +46,37 @@ def test_load_config_and_builds_match_jax(path):
         j = dataclasses.asdict(getattr(jbuild, name)(want))
         assert t == {k: v for k, v in j.items() if k in t}, name
         assert set(j) - set(t) <= {"detections_per_image"}, name
-    if "swin" in os.path.basename(path):
-        with pytest.raises(NotImplementedError, match="item 5"):
-            tbuild.build_model_cfg(got)
-    else:
-        t = dataclasses.asdict(tbuild.build_model_cfg(got))
-        j = dataclasses.asdict(jbuild.build_model_cfg(want))
-        assert j.pop("swin") is None and t == j
+    t = dataclasses.asdict(tbuild.build_model_cfg(got))
+    j = dataclasses.asdict(jbuild.build_model_cfg(want))
+    assert t == j  # the SwinCfg too, field by field
+    assert (j["swin"] is None) == ("swin" not in os.path.basename(path))
+
+
+@pytest.mark.parametrize("name", ["swinl_ovis", "swinl_coco"])
+@pytest.mark.parametrize("backbone_name", ["build_swinv2_backbone", "build_swin_backbone"])
+def test_swin_model_cfg_matches_jax_and_configs(name, backbone_name):
+    """The Swin branch of build_model_cfg: MODEL.SWIN.TYPE selects the preset
+    name, v2 only for a backbone name holding "swinv2", the SwinCfg from
+    MODEL.SWIN (DROP_PATH_RATE 0.2 and PRETRAIN_IMG_SIZE 384 by default); the
+    yaml's own backbone name gives the port's hand-read configs."""
+    from mdqe_cvpr2023_tpu_torch import configs
+    path = os.path.join(ROOT, "configs", f"{name}.yaml")
+    opts = ["MODEL.BACKBONE.NAME", backbone_name]
+    got = tbuild.build_model_cfg(tconfig.load_config(path, opts))
+    want = jbuild.build_model_cfg(jconfig.load_config(path, opts))
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert got.backbone == "swin_large" and got.swin.version == (2 if "v2" in backbone_name else 1)
+    assert (got.swin.drop_path_rate, got.swin.pretrain_img_size, got.swin.ape) == \
+        (0.2, 384, False)
+    assert got.backbone_channels == want.backbone_channels == (384, 768, 1536)
+    if "v2" in backbone_name:
+        assert got == {"swinl_ovis": configs.SWINL_OVIS, "swinl_coco": configs.SWINL_COCO}[name]
+    if name == "swinl_ovis":
+        inf = tbuild.build_inference_cfg(tconfig.load_config(path))
+        assert inf == configs.SWINL_OVIS_INF
+        assert (inf.n_frames_test, inf.n_frames_window_test, inf.clip_topk,
+                inf.max_num_instances, inf.apply_cls_thres) == (2, 20, 150, 120, 0.1)
+        assert tconfig.load_config(path).INPUT.MIN_SIZE_TEST == 480
 
 
 def test_merge_from_list_rejects_bad_overrides():
@@ -90,6 +114,56 @@ def test_frozen_set_matches_jax(tiny_model, freeze_at):
     # every leaf the JAX mask freezes that is no parameter here is a buffer
     assert {k for k, v in mask.items() if bool(v)} - want <= {
         k for k, _ in tiny_model.named_buffers()}
+
+
+SWIN_TINY = dict(embed_dim=32, depths=(2, 2, 2, 2), num_heads=(2, 4, 8, 16), window_size=4)
+
+
+@pytest.fixture(scope="module")
+def swin_model():
+    from mdqe_cvpr2023_tpu_torch.models.swin import SwinCfg
+    return MDQEModel(MDQEModelCfg(**dict(TINY8, backbone="swin_tiny",
+                                         swin=SwinCfg(**SWIN_TINY))), device="cpu", seed=5)
+
+
+@pytest.mark.parametrize("freeze_at", [0, 2, 5])
+def test_swin_frozen_set_matches_jax(swin_model, freeze_at):
+    """frozen_leaf_mask freezes no Swin leaf at any FREEZE_AT, and neither
+    does the port: every backbone parameter trains."""
+    from mdqe_cvpr2023_tpu.parallel.train import frozen_leaf_mask
+    tree = jckpt.convert_torch_state_dict(
+        {k: v.numpy() for k, v in swin_model.state_dict().items()})
+    mask = jax_tree_to_state_dict(jax.tree.map(np.asarray, frozen_leaf_mask(tree, freeze_at)))
+    backbone = [k for k, _ in swin_model.named_parameters()
+                if k.startswith("detr.backbone.")]
+    assert len(backbone) > 100
+    assert not any(bool(mask[k]) or is_frozen(k, freeze_at) for k in backbone)
+
+
+@pytest.mark.parametrize("wrap", [False, True])
+def test_swin_checkpoint_loads_as_jax(swin_model, tmp_path, wrap):
+    """A Swin .pth as the reference saves it: the model's state plus the
+    window attention's relative_position_index / relative_coords_table
+    buffers (recomputed, never loaded), optionally under {"model": ...}. The
+    port's load_torch_checkpoint + merge_state_dict fills every entry of a
+    fresh model exactly as JAX load_torch_checkpoint + load_jax_params."""
+    sd = dict(swin_model.state_dict())
+    for i in range(4):
+        for j in range(2):
+            blk = f"detr.backbone.0.backbone.layers.{i}.blocks.{j}.attn."
+            sd[blk + "relative_position_index"] = torch.arange(16 * 16).reshape(16, 16)
+            sd[blk + "relative_coords_table"] = torch.rand(1, 7, 7, 2)
+    path = str(tmp_path / "swin.pth")
+    torch.save({"model": sd} if wrap else sd, path)
+    got = tckpt.load_torch_checkpoint(path)
+    assert set(got) == set(swin_model.state_dict())
+    target = MDQEModel(swin_model.cfg, device="cpu", seed=7)
+    assert set(tckpt.merge_state_dict(target, got)) == set(target.state_dict())
+    ref = MDQEModel(swin_model.cfg, device="cpu", seed=8)
+    load_jax_params(ref, jckpt.load_torch_checkpoint(path))
+    for k, v in ref.state_dict().items():
+        torch.testing.assert_close(target.state_dict()[k], v, rtol=0, atol=0)
+        torch.testing.assert_close(v, swin_model.state_dict()[k], rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("f_pre,f_tgt", [(4, 4), (1, 4), (2, 5), (3, 2)])
@@ -302,3 +376,24 @@ def test_cli_main(mini_dataset, tmp_path):
     trainer, metrics = train_net.main(
         base + ["--eval-only", "--resume", str(tmp_path / "ckpt_0000001.pth")] + opts)
     assert trainer.iteration == 1 and metrics is not None
+
+
+def test_cli_swinl_ovis_trains_and_tests(mini_dataset, tmp_path):
+    """train_net with configs/swinl_ovis.yaml (its Swin cut to a tiny width)
+    runs 2 iterations, saves and tests on the CPU."""
+    from mdqe_cvpr2023_tpu_torch import train_net
+    swin = ["MODEL.SWIN.EMBED_DIM", "32", "MODEL.SWIN.DEPTHS", "[2, 2, 2, 2]",
+            "MODEL.SWIN.NUM_HEADS", "[2, 4, 8, 16]", "MODEL.SWIN.WINDOW_SIZE", "4"]
+    opts = TINY_OVERRIDES + swin + ["SOLVER.IMS_PER_BATCH", "2", "TEST.EVAL_PERIOD", "0",
+                                    "DATALOADER.NUM_WORKERS", "0", "OUTPUT_DIR", str(tmp_path)]
+    trainer, metrics = train_net.main(
+        ["--config-file", os.path.join(ROOT, "configs", "swinl_ovis.yaml"), "--datasets-root",
+         str(mini_dataset), "--max-videos", "1", "--device", "cpu", "--max-iter", "2",
+         "--log-every", "1"] + opts)
+    assert trainer.model_cfg.backbone == "swin_large" and trainer.model_cfg.swin.version == 2
+    assert trainer.model_cfg.swin.drop_path_rate == 0.2
+    assert trainer.iteration == 2 and os.path.exists(tmp_path / "ckpt_0000002.pth")
+    rows = [json.loads(line) for line in open(tmp_path / "metrics.jsonl")]
+    assert [r["iteration"] for r in rows if "test" not in r] == [1, 2]
+    assert all(np.isfinite(r["total_loss"]) for r in rows if "test" not in r)
+    assert metrics is not None and 0.0 <= metrics["AP"] <= 100.0

@@ -72,3 +72,8 @@ def test_scan_covers_the_data_and_engine_subpackages():
               "data.builtin", "data.categories", "data.image", "engine.config",
               "engine.build", "engine.checkpoint", "engine.trainer", "train_net"):
         assert f"mdqe_cvpr2023_tpu_torch.{m}" in mods, m
+
+
+def test_scan_covers_the_swin_backbone():
+    assert "mdqe_cvpr2023_tpu_torch.models.swin" in set(_modules())
+    assert PORT / "models" / "swin.py" in _sources()
