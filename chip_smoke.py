@@ -50,6 +50,17 @@ Phases (each exits non-zero on failure; none is caught and continued):
      and evaluation; then the tiny Trainer on the card against the port's CPU
      path (loader batches, losses, test predictions, AP) and the native RLE
      codec against the Python one;
+  6a. mixed precision (SOLVER.AMP.ENABLED): the bf16 kernels at the R50
+     training call shapes (msda_fwd_bf16 against its plain version,
+     msda_bwd_bf16 against autograd of the plain version on f64 copies of the
+     same bf16 inputs, and no worse than the plain version in bf16), timed
+     beside msda_bwd_f32, the plain version, the grid_sample form and the
+     bound; the AMP training step at full width (s/step, peak memory, 6 / 6 /
+     24 launches a step of the forward and msda_bwd_bf16 and none of
+     msda_bwd_f32, finite and falling loss, fp32 masters, frozen leaves, the
+     first step's losses against the fp32 step's); a tiny AMP step on the
+     card against the CPU path; train_net with SOLVER.AMP.ENABLED True (3
+     iterations, a checkpoint, test; a second process resumed for 1 more);
   6c. Swin-L (configs/swinl_*.yaml, random weights, drop path 0.2 in
      training) through the same three paths at full width, the kernels'
      call shapes recorded on the way: inference_vis at the swinl_ovis
@@ -57,12 +68,14 @@ Phases (each exits non-zero on failure; none is caught and continued):
      (35 clips; the crowded tracker too), a small Swin video against the CPU
      path; inference_image at 800x1216; the training step at 2 clips x 2
      frames of 736x1024 (s/step, peak memory, launches, finite and falling
-     loss, frozen leaves unchanged), a tiny Swin step against the CPU path;
+     loss, frozen leaves unchanged) and the same step in AMP (the bf16
+     kernels' call shapes recorded), a tiny Swin step against the CPU path;
      train_net with configs/swinl_ovis.yaml for 2 iterations ending in
      test; then the forward kernel at every recorded call shape against its
      plain version and the backward kernel against autograd of the plain
      version at the training shapes, each timed (eager, graph replay) beside
-     the plain version, the grid_sample form and the bound;
+     the plain version, the grid_sample form and the bound, and the bf16
+     kernels at the AMP step's shapes as in 6a;
   7. the kernel tools' sweeps (block sizes, gather probe, tensor-core depth),
      each problem with the launch counts set to 0 before it and read after
      it;
@@ -168,6 +181,9 @@ BWD_CHECKS = [
     ("odd", 2, 45, 2, 48, 2, ((9, 4), (2, 11)), "uniform"),
 ]
 BWD_REPLACES = f"{PALLAS}:225,278,768,789"  # _bwd_sample/_bwd_value, banded pair
+# msda_bwd_bf16 replaces the pair the AMP step reaches on the TPU (the
+# training encoder passes allow_banded=False): _bwd_sample / _bwd_value
+BWD_BF16_REPLACES = f"{PALLAS}:225,278"
 
 
 def bwd_inputs(torch, B, Q, H, D, P, shapes, mode, seed):
@@ -267,12 +283,21 @@ def expected_train_launches(cfg):
             "decoder_inst": cfg.dec_layers * cfg.n_feature_levels}
 
 
-def train_full_width(torch, da, card, bwd_timings=None, swin=False):
+def train_full_width(torch, da, card, bwd_timings=None, swin=False, amp=False,
+                     fp32_losses=None):
     """The training step at full width, R50 (``TRAIN_CFG``: 2 clips x 4
     frames of 512x800) or Swin-L (``configs.SWINL_OVIS``: 2 clips x 2 frames of
-    736x1024, drop path 0.2): s/step, peak memory, launches, finite losses, a
-    lower loss after a few steps, frozen leaves unchanged. Returns the
-    forward and backward launch counts of its timed steps."""
+    736x1024, drop path 0.2), fp32 or with ``amp`` mixed precision: s/step,
+    peak memory, launches, finite losses, a lower loss after a few steps,
+    frozen leaves unchanged, fp32 parameters and gradients. The backward
+    launches are those of msda_bwd_f32 (fp32) or msda_bwd_bf16 (amp), and the
+    other kernel must not run. ``fp32_losses``: the fp32 run's first-step
+    losses (the same weights, batch and dropout masks: the masks are drawn in
+    fp32 either way), which the AMP run's first step is held to: the total
+    within 5% and the weighted losses as a vector within 10% of its norm
+    (bf16 rounds the forward, and can flip argmax decisions such as the query
+    selection). Returns the forward and backward launch counts of its timed
+    steps and the first step's losses."""
     from mdqe_cvpr2023_tpu_torch.models.detr import MDQEModel
     from mdqe_cvpr2023_tpu_torch.parallel import train as ptrain
     if swin:
@@ -286,10 +311,11 @@ def train_full_width(torch, da, card, bwd_timings=None, swin=False):
     model = MDQEModel(cfg, device="cuda", seed=0)
     # the JAX package's loss-decrease settings (tests/test_train_step.py)
     opt = ptrain.make_optimizer(model, ptrain.TrainCfg(base_lr=1e-3, steps=(1000,),
-                                                       clip_norm=1.0))
+                                                       clip_norm=1.0, amp=amp))
     trainable = {n for n, p in model.named_parameters() if p.requires_grad}
     frozen = {k: v.clone() for k, v in model.state_dict().items() if k not in trainable}
-    step = ptrain.make_train_step(crit)
+    step = ptrain.make_train_step(crit, amp=amp)
+    kind = "AMP (mixed precision)" if amp else "fp32"
     batch = ptrain.to_device(batch, "cuda")
     gen = torch.Generator(device="cuda").manual_seed(0)
     print(f"model {sum(p.numel() for p in model.parameters()) / 1e6:.1f} M parameters "
@@ -301,8 +327,9 @@ def train_full_width(torch, da, card, bwd_timings=None, swin=False):
     t0 = time.perf_counter()
     total, ldict = step(model, opt, batch, gen)
     totals.append(total)
+    first = {k: float(v) for k, v in ldict.items()}
     torch.cuda.synchronize()
-    print(f"warm-up step {time.perf_counter() - t0:.2f} s", flush=True)
+    print(f"{kind} warm-up step {time.perf_counter() - t0:.2f} s", flush=True)
 
     n_steps = 3
     torch.cuda.reset_peak_memory_stats()
@@ -314,14 +341,18 @@ def train_full_width(torch, da, card, bwd_timings=None, swin=False):
         totals.append(total)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
-    fwd, bwd = dict(da.LAUNCHES), dict(da.BWD_LAUNCHES)
+    fwd = dict(da.LAUNCHES)
+    bwd, other = ((dict(da.BWD_BF16_LAUNCHES), dict(da.BWD_LAUNCHES)) if amp
+                  else (dict(da.BWD_LAUNCHES), dict(da.BWD_BF16_LAUNCHES)))
     peak = torch.cuda.max_memory_allocated()
     s_step = sum(walls) / n_steps
     totals = [float(t) for t in totals]
-    print(f"training step: {', '.join(f'{w:.4f}' for w in walls)} s -> {s_step:.4f} s/step, "
-          f"{ptrain.CLIPS / s_step:.3f} clips/s ({card})")
+    print(f"{kind} training step: {', '.join(f'{w:.4f}' for w in walls)} s -> "
+          f"{s_step:.4f} s/step, {ptrain.CLIPS / s_step:.3f} clips/s ({card})")
     print(f"peak device memory {peak / 2 ** 30:.2f} GiB")
-    print(f"launches in {n_steps} steps: forward {json.dumps(fwd)}, backward {json.dumps(bwd)}")
+    print(f"launches in {n_steps} steps: forward {json.dumps(fwd)}, backward "
+          f"msda_bwd_{'bf16' if amp else 'f32'} {json.dumps(bwd)}, msda_bwd_"
+          f"{'f32' if amp else 'bf16'} {json.dumps(other)}")
     print(f"total loss per step {[round(t, 4) for t in totals]}")
     print(f"losses {json.dumps({k: round(float(v), 4) for k, v in ldict.items()})}")
     if bwd_timings is not None:
@@ -330,8 +361,24 @@ def train_full_width(torch, da, card, bwd_timings=None, swin=False):
               flush=True)
 
     want = {k: n_steps * v for k, v in expected_train_launches(cfg).items()}
-    if fwd != want or bwd != want:
-        fail(f"training launches {fwd} / {bwd}, want {want} each")
+    if fwd != want or bwd != want or any(other.values()):
+        fail(f"training launches {fwd} / {bwd} / {other}, want {want}, {want}, none")
+    if fp32_losses is not None:
+        keys = sorted(fp32_losses)
+        a = np.array([first[k] for k in keys])
+        b = np.array([fp32_losses[k] for k in keys])
+        rel_total = abs(a.sum() - b.sum()) / abs(b.sum())
+        rel_vec = float(np.linalg.norm(a - b) / np.linalg.norm(b))
+        print(f"first step, AMP against fp32 (same weights, batch, masks): total "
+              f"{a.sum():.4f} vs {b.sum():.4f} (rel {rel_total:.2e}, tol 5e-2); loss vector "
+              f"rel distance {rel_vec:.2e} (tol 1e-1); "
+              f"{json.dumps({k: [round(first[k], 4), round(fp32_losses[k], 4)] for k in keys})}",
+              flush=True)
+        if rel_total > 5e-2 or rel_vec > 1e-1:
+            fail("the AMP step's first losses are far from the fp32 step's")
+    if not all(p.dtype == torch.float32 for p in model.parameters()) or not all(
+            p.grad is None or p.grad.dtype == torch.float32 for p in model.parameters()):
+        fail("parameters or gradients are not fp32 masters")
     if not all(np.isfinite(totals)) or not all(
             bool(torch.isfinite(v)) for v in ldict.values()):
         fail("non-finite training loss")
@@ -343,10 +390,10 @@ def train_full_width(torch, da, card, bwd_timings=None, swin=False):
         fail(f"frozen parameters or buffers changed: {changed[:5]}")
     del model, opt, batch, frozen, state
     torch.cuda.empty_cache()
-    return fwd, bwd
+    return fwd, bwd, first
 
 
-def tiny_train_card_vs_cpu(torch, tiny=None):
+def tiny_train_card_vs_cpu(torch, tiny=None, amp=False):
     """One training step of the tiny configuration (R50 unless ``tiny`` is
     given; drop path 0 in a Swin one) on the card and on the
     port's CPU path, dropout 0, the same reid priorities. Tolerances (those of
@@ -355,7 +402,23 @@ def tiny_train_card_vs_cpu(torch, tiny=None):
     and cosine >= 0.9999 where s > 1e-4 G (s the leaf's largest CPU gradient,
     G the model's); after the step, frozen parameters and buffers equal, the
     trainable entries 99% within 0.01 lr, 99.9% within 0.05 lr, all within lr
-    (Adam's first step is about lr * sign(g))."""
+    (Adam's first step is about lr * sign(g)).
+
+    With ``amp`` the mixed-precision step on both, held as
+    tests/test_torch_amp.py holds the port's AMP to JAX's (cuDNN and the CPU
+    round their bf16 outputs on their own, and a rounding can flip an argmax):
+    the total within 1e-2 relative and the loss vector within 5e-2 of its
+    norm; the angle between the card's AMP gradients and the fp32 ones (the
+    CPU's fp32 step; the card's fp32 step equals it, above) at most twice
+    the CPU's AMP gradients' angle to them, and at least a quarter of it:
+    each device's bf16 rounds on its own (the CPU's plain backward also sums
+    d(value) in bf16, the card's kernel in fp32), so the two AMP steps differ
+    by about both roundings, a wrong card path would lie far outside, and a
+    card step that ran in fp32 would lie at an angle of about 0 (measured on
+    the H100: 0.2199 against 0.3184 rad; the card-vs-CPU AMP cosine, 0.940,
+    is printed and not held: it reads both roundings at once); after the
+    step, frozen leaves equal and the trainable entries 90% within 0.05 lr,
+    all within 2.1 lr."""
     from mdqe_cvpr2023_tpu_torch.engine.weights import grad_state_dict
     from mdqe_cvpr2023_tpu_torch.losses.criterion import CriterionCfg
     from mdqe_cvpr2023_tpu_torch.models.detr import MDQEModel, MDQEModelCfg
@@ -371,17 +434,22 @@ def tiny_train_card_vs_cpu(torch, tiny=None):
                                n_inst=2, num_classes=5)
     pri = torch.rand((2, 3, 2, 2 * 16), generator=torch.Generator().manual_seed(2))
     res = {}
-    for dev in ("cuda", "cpu"):
+    # with amp, the CPU's fp32 step too: how far bf16 rounding alone moves the
+    # gradients on one device
+    runs = [("cuda", "cuda", amp), ("cpu", "cpu", amp)] + ([("cpu32", "cpu", False)] if amp
+                                                          else [])
+    for key, dev, run_amp in runs:
         model = MDQEModel(tiny, device=dev, seed=3)
         opt = ptrain.make_optimizer(model, tc)
         opt.zero_grad()
         total, ldict = ptrain.loss_fn(model, crit, ptrain.to_device(batch, dev), None,
-                                      dropout_rate=0.0, reid_priorities=pri.to(dev))
+                                      dropout_rate=0.0, reid_priorities=pri.to(dev),
+                                      amp=run_amp)
         total.backward()
         grads = grad_state_dict(model)
         trainable = {n for n, p in model.named_parameters() if p.requires_grad}
         opt.step()
-        res[dev] = (total.item(), {k: v.item() for k, v in ldict.items()}, grads,
+        res[key] = (total.item(), {k: v.item() for k, v in ldict.items()}, grads,
                     {k: v.cpu().double().numpy() for k, v in model.state_dict().items()},
                     trainable)
     (tg, lg, gg, pg, trainable), (tc_, lc, gc, pc, _) = res["cuda"], res["cpu"]
@@ -405,6 +473,35 @@ def tiny_train_card_vs_cpu(torch, tiny=None):
     diffs = np.concatenate([np.abs(pg[k] - pc[k]).ravel() for k in trainable]) / lr
     frozen_diff = max(float(np.abs(pg[k] - pc[k]).max()) for k in pc if k not in trainable)
     q99, q999 = np.quantile(diffs, [0.99, 0.999])
+    if amp:
+        keys = sorted(lc)
+        a, b = np.array([lg[k] for k in keys]), np.array([lc[k] for k in keys])
+        vec = float(np.linalg.norm(a - b) / np.linalg.norm(b))
+        tot = abs(tg - tc_) / abs(tc_)
+        def flat(g):
+            return np.concatenate([g[k].astype(np.float64).ravel() for k in sorted(trainable)])
+
+        def cosine(a, b):
+            return float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b)))
+        g32 = flat(res["cpu32"][2])
+        cos = cosine(flat(gg), flat(gc))
+        ang_card = float(np.arccos(min(1.0, cosine(flat(gg), g32))))
+        ang_cpu = float(np.arccos(min(1.0, cosine(flat(gc), g32))))
+        q90 = float(np.quantile(diffs, 0.9))
+        print(f"tiny AMP step ({tiny.backbone}) card vs CPU: total rel err {tot:.2e} (tol "
+              f"1e-2), loss vector rel distance {vec:.2e} (tol 5e-2); gradients' angle to "
+              f"the fp32 ones: card AMP {ang_card:.4f} rad, CPU AMP {ang_cpu:.4f} rad (tol: "
+              f"the card's from a quarter to twice the CPU's); card-vs-CPU AMP cosine "
+              f"{cos:.6f}, grad norm {norm_g:.6f} vs {norm_c:.6f}; per leaf worst "
+              f"max|err|/s {worst_rel:.2e}, worst cosine {worst_cos:.6f} (not held); after one "
+              f"step |dparam|/lr q90 {q90:.2e} (tol 0.05), q99 {q99:.2e}, max "
+              f"{diffs.max():.3f} (tol 2.1), frozen max diff {frozen_diff:.1e} (tol 0)",
+              flush=True)
+        if (tot > 1e-2 or vec > 5e-2 or not 0.25 * ang_cpu <= ang_card <= 2.0 * ang_cpu
+                or q90 > 0.05
+                or diffs.max() > 2.1 or frozen_diff != 0):
+            fail("the tiny AMP training step on the card disagrees with the CPU path")
+        return
     print(f"tiny step ({tiny.backbone}) card vs CPU: losses max rel err {loss_err:.2e} "
           f"(tol 1e-4); grad norm "
           f"{norm_g:.6f} vs {norm_c:.6f} (rel {abs(norm_g - norm_c) / norm_c:.2e}, tol 1e-4); "
@@ -784,15 +881,27 @@ def sass_lines(_build, name):
 
 
 def check_vector_red(_build):
-    """msda_bwd_f32 must scatter d(value) with 16-byte vector reductions
-    (red.global.add.v4.f32): the library's SASS holds REDG ... F32x4
-    instructions and no other global reduction or atomic."""
-    red = [ln for ln in sass_lines(_build, "ms_deform_attn") if "REDG" in ln or "ATOMG" in ln]
+    """msda_bwd_f32 and msda_bwd_bf16 must scatter d(value) with 16-byte
+    vector reductions (red.global.add.v4.f32; bf16 too sums into fp32): the
+    library's SASS holds REDG ... F32x4 instructions and no other global
+    reduction or atomic (no bf16 atomics)."""
+    lines = sass_lines(_build, "ms_deform_attn")
+    red = [ln for ln in lines if "REDG" in ln or "ATOMG" in ln]
     vec = sum("F32x4" in ln for ln in red)
-    print(f"ms_deform_attn SASS: {vec} 16-byte vector reductions (REDG.E.ADD.F32x4), "
+    # per value type of the backward kernel's instantiations (mangled names:
+    # msda_bwd_kernelIf... for fp32, msda_bwd_kernelI13__nv_bfloat16... for bf16)
+    per_type, fn = {"f32": 0, "bf16": 0}, None
+    for ln in lines:
+        if "Function :" in ln:
+            fn = ("bf16" if "msda_bwd_kernelI13__nv_bfloat16" in ln else
+                  "f32" if "msda_bwd_kernelIf" in ln else None)
+        elif fn and "REDG" in ln and "F32x4" in ln:
+            per_type[fn] += 1
+    print(f"ms_deform_attn SASS: {vec} 16-byte vector reductions (REDG.E.ADD.F32x4; "
+          f"msda_bwd_f32's kernels {per_type['f32']}, msda_bwd_bf16's {per_type['bf16']}), "
           f"{len(red) - vec} other global atomics", flush=True)
-    if vec == 0 or len(red) != vec:
-        fail("msda_bwd_f32 does not scatter d(value) with vector reductions alone")
+    if vec == 0 or len(red) != vec or 0 in per_type.values():
+        fail("the backward kernels do not scatter d(value) with vector reductions alone")
 
 
 def check_wgmma(_build):
@@ -1585,6 +1694,188 @@ def swin_bwd_sites(da, seen, card):
     return errs, timings
 
 
+def bf16_sites(da, path, seen, card):
+    """The kernels the AMP step runs, at every call shape ``seen`` ({site:
+    Counter(key)}, keys as ``recorded_sites`` makes them) with a bf16 value:
+    the forward (msda_fwd_bf16) against its plain version (1e-3, as at the
+    bf16 inference shapes) and msda_bwd_bf16 against its oracle, autograd of
+    the plain version on f64 copies of the same bf16 value, locations,
+    weights and output gradient. d(value): the kernel sums in fp32 and rounds
+    once, so its error must be within one bf16 step of the largest entry
+    (2^-8 of it) and no larger than the plain version's in bf16 (its index
+    backward sums in bf16). d(loc) and d(weights), fp32, against the plain
+    version on the same bf16 value (fp32 arithmetic that picks the kernel's
+    corners; the f64 oracle picks others where a location's product sits on
+    a pixel boundary, and its distance is printed), 1e-4 of the largest entry
+    as for fp32. Each timed (CUDA events, wrapper included: for the backward
+    its zeroed fp32 d(value) and the cast; and CUDA-graph replay) beside
+    msda_bwd_f32 on the fp32 upcast (graph replay), the plain version, the
+    grid_sample form and the bound. Returns the forward's and the backward's
+    max |err| and launch-weighted timings per site."""
+    errs = {"fwd": {}, "bwd": {}}
+    rows = {"fwd": {}, "bwd": {}}
+    for i, (site, keys) in enumerate(sorted(seen.items())):
+        for j, (key, count) in enumerate(keys.most_common()):
+            B, Q, H, D, P, shapes, _ = key
+            v, lo, aw, gout = site_inputs(site, key, seed=700 + 10 * i + j, grad=True)
+            vb = v.bfloat16()
+            del v
+            got = da.ms_deform_attn_cuda(vb, shapes, lo, aw)
+            want = da.ms_deform_attn_plain(vb, shapes, lo, aw)
+            torch.cuda.synchronize()
+            f_err = float((got - want).abs().max())
+            if not (f_err <= 1e-3 and bool(torch.isfinite(got).all())):
+                fail(f"msda_fwd_bf16 disagrees with its plain version at {path} {site} {key}")
+            errs["fwd"][site] = max(errs["fwd"].get(site, 0.0), f_err)
+            del got, want
+            got = da.ms_deform_attn_bwd_cuda(vb, shapes, lo, aw, gout)
+            _, _, plain = grads_of(torch, lambda a, b, c: da.ms_deform_attn_plain(a, shapes, b, c),
+                                   vb, lo, aw, gout)
+            _, _, oracle = grads_of(
+                torch, lambda a, b, c: da.ms_deform_attn_plain(a, shapes, b, c),
+                vb.double(), lo.double(), aw.double(), gout.double())
+            torch.cuda.synchronize()
+            scale = float(oracle[0].abs().max())
+            err = float((got[0].double() - oracle[0]).abs().max())
+            err_plain = float((plain[0].double() - oracle[0]).abs().max())
+            ok = (got[0].dtype == torch.bfloat16 and err <= 2.0 ** -8 * scale
+                  and err <= err_plain and bool(torch.isfinite(got[0]).all()))
+            msgs = [f"dvalue bf16 {err:.2e} (plain bf16 {err_plain:.2e}, tol {2.0 ** -8 * scale:.1e}"
+                    f" and no larger than plain)"]
+            worst = err
+            for name, g, w, o in zip(("loc", "attw"), got[1:], plain[1:], oracle[1:]):
+                e = float((g - w).abs().max())
+                tol = 1e-4 * max(1.0, float(w.abs().max()))
+                msgs.append(f"d{name} {e:.2e} (tol {tol:.1e}; from f64 "
+                            f"{float((g.double() - o).abs().max()):.2e})")
+                ok = ok and e <= tol and bool(torch.isfinite(g).all())
+                worst = max(worst, e)
+            errs["bwd"][site] = max(errs["bwd"].get(site, 0.0), worst)
+            print(f"{path} bwd bf16 {site:12s} B={B} Q={Q} H={H} D={D} P={P} L={len(shapes)} "
+                  f"{shapes[0][0]}x{shapes[0][1]}..: {count} launches | max|err| "
+                  f"{', '.join(msgs)} {'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                fail(f"msda_bwd_bf16 disagrees with its oracle at {path} {site} {key}")
+            del got, plain, oracle
+            tf = dict(ms=measure.time_ms(lambda: da.ms_deform_attn_cuda(vb, shapes, lo, aw), 20),
+                      device_ms=measure.graph_ms(
+                          lambda: da.ms_deform_attn_cuda(vb, shapes, lo, aw), 20),
+                      plain_ms=measure.time_ms(
+                          lambda: da.ms_deform_attn_plain(vb, shapes, lo, aw), 2),
+                      library_ms=measure.time_ms(
+                          lambda: measure.grid_sample_msda(vb, shapes, lo, aw), 2))
+            tf["bound_ms"], tf["bound_by"], f_bytes = measure.msda_bound(vb, shapes, lo, aw)
+            rows["fwd"].setdefault(site, []).append((count, tf))
+            tb = dict(ms=measure.time_ms(
+                          lambda: da.ms_deform_attn_bwd_cuda(vb, shapes, lo, aw, gout), 10),
+                      device_ms=measure.graph_ms(
+                          lambda: da.ms_deform_attn_bwd_cuda(vb, shapes, lo, aw, gout), 10))
+            v32 = vb.float()
+            f32_ms = measure.graph_ms(
+                lambda: da.ms_deform_attn_bwd_cuda(v32, shapes, lo, aw, gout), 10)
+            del v32
+            leaves, out, _ = grads_of(
+                torch, lambda a, b, c: da.ms_deform_attn_plain(a, shapes, b, c),
+                vb, lo, aw, gout, retain=True)
+            tb["plain_ms"] = measure.time_ms(lambda: torch.autograd.grad(
+                out, leaves, gout, retain_graph=True), 2)
+            del out, leaves
+            leaves, out, _ = grads_of(
+                torch, lambda a, b, c: measure.grid_sample_msda(a, shapes, b, c),
+                vb, lo, aw, gout, retain=True)
+            tb["library_ms"] = measure.time_ms(lambda: torch.autograd.grad(
+                out, leaves, gout, retain_graph=True), 2)
+            del out, leaves
+            tb["bound_ms"], tb["bound_by"], b_bytes, _ = measure.msda_bwd_bound(
+                vb, shapes, lo, aw)
+            rows["bwd"].setdefault(site, []).append((count, tb))
+            print(f"{path} bf16 {site:12s}: fwd kernel {tf['ms']:.4f} ms (graph replay "
+                  f"{tf['device_ms']:.4f} ms) | plain {tf['plain_ms']:.3f} ms | grid_sample form "
+                  f"{tf['library_ms']:.3f} ms | bound {tf['bound_ms'] * 1e3:.1f} us by "
+                  f"{tf['bound_by']} ({f_bytes / 1e6:.1f} MB); bwd kernel {tb['ms']:.4f} ms "
+                  f"(graph replay {tb['device_ms']:.4f} ms; msda_bwd_f32 on the fp32 upcast "
+                  f"{f32_ms:.4f} ms) | plain backward {tb['plain_ms']:.3f} ms | grid_sample "
+                  f"form backward {tb['library_ms']:.3f} ms | bound {tb['bound_ms'] * 1e3:.1f} "
+                  f"us by {tb['bound_by']} ({b_bytes / 1e6:.1f} MB) ({card})", flush=True)
+            del vb, lo, aw, gout
+    return (errs["fwd"], errs["bwd"], {s_: _weighted(r) for s_, r in rows["fwd"].items()},
+            {s_: _weighted(r) for s_, r in rows["bwd"].items()})
+
+
+AMP_TRAIN_ITERS, AMP_TOTAL_ITERS = 3, 4
+
+
+def amp_trainer(card):
+    """``train_net --config-file configs/R50_ovis_360.yaml SOLVER.AMP.ENABLED
+    True`` at full width with the cuts of TRAINER_CUTS: AMP_TRAIN_ITERS
+    iterations with 2 loader threads, a checkpoint and ``test``; then a
+    second process resumed from it to AMP_TOTAL_ITERS and ``test``. Holds the
+    launches (the forward and msda_bwd_bf16 at every step, msda_bwd_f32
+    never), finite losses, fp32 parameters and AdamW moments in the
+    checkpoint, and an exact resume (iteration, step count). Returns the
+    launches per call site: training forward, bf16 backward, the first test's
+    forward."""
+    tmp = tempfile.mkdtemp(prefix="mdqe_amp_trainer_")
+    try:
+        write_ovis_dataset(tmp, (360, 640), train_frames=(24, 30), dev_frames=36,
+                           num_classes=25, seed=3)
+        cuts = TRAINER_CUTS + [("SOLVER.AMP.ENABLED", "True", "the mixed-precision step")]
+        print("reduced: " + "; ".join(f"{k} {v} ({why})" for k, v, why in cuts), flush=True)
+        out = os.path.join(tmp, "out")
+        opts = [x for k, v, _ in cuts for x in (k, v)] + ["OUTPUT_DIR", out]
+        common = ["--config-file", "configs/R50_ovis_360.yaml", "--datasets-root", tmp,
+                  "--max-videos", "1", "--log-every", "1"]
+        run_train_net(common + ["--max-iter", str(AMP_TRAIN_ITERS)] + opts, out)
+        first = os.path.join(out, f"ckpt_{AMP_TRAIN_ITERS:07d}.pth")
+        rows = run_train_net(common + ["--resume", first, "--max-iter",
+                                       str(AMP_TOTAL_ITERS)] + opts, out)
+        train = [r for r in rows if "test" not in r]
+        tests = [r for r in rows if "test" in r]
+        if ([r["iteration"] for r in train] != list(range(1, AMP_TOTAL_ITERS + 1))
+                or [r["iteration"] for r in tests] != [AMP_TRAIN_ITERS, AMP_TOTAL_ITERS]):
+            fail(f"AMP metrics rows {[(r['iteration'], 'test' in r) for r in rows]}")
+        launches = {d: {s_: sum(r["msda_launches"][d][s_] for r in train)
+                        for s_ in train[0]["msda_launches"]["fwd"]}
+                    for d in ("fwd", "bwd", "bwd_bf16")}
+        t = tests[0]
+        print(f"AMP Trainer ({card}): s/iter {[round(r['sec_per_iter'], 4) for r in train]}, "
+              f"data_wait_frac {[round(r['data_wait_frac'], 4) for r in train]}, losses "
+              f"{[round(r['total_loss'], 4) for r in train]}, peak device memory "
+              f"{max(r['max_mem_gib'] for r in rows):.2f} GiB; launches in "
+              f"{AMP_TOTAL_ITERS} steps {json.dumps(launches)}; test: {t['clips']} clips, "
+              f"{t['predictions']} predictions, {t['clips_per_s']:.3f} clips/s, AP "
+              f"{t['AP']:.4f}, launches {json.dumps(t['msda_launches'])}", flush=True)
+        want = {k: AMP_TOTAL_ITERS * v
+                for k, v in expected_train_launches(trainer_model_cfg()).items()}
+        if (launches["fwd"] != want or launches["bwd_bf16"] != want
+                or any(launches["bwd"].values())):
+            fail(f"AMP trainer launches {launches}, want {want} forward and msda_bwd_bf16")
+        for tr in tests:
+            if min(tr["msda_launches"]["fwd"].values()) == 0 or any(
+                    n for d in ("bwd", "bwd_bf16") for n in tr["msda_launches"][d].values()):
+                fail(f"AMP test launches {tr['msda_launches']}")
+        if not all(np.isfinite(r["total_loss"]) for r in train) or not all(
+                np.isfinite(tr["AP"]) and 0.0 <= tr["AP"] <= 100.0 for tr in tests):
+            fail("non-finite AMP training loss or AP out of [0, 100]")
+        for it in (AMP_TRAIN_ITERS, AMP_TOTAL_ITERS):
+            ck = torch.load(os.path.join(out, f"ckpt_{it:07d}.pth"), map_location="cpu",
+                            weights_only=True)
+            dtypes = {str(v.dtype) for v in ck["model"].values() if v.is_floating_point()}
+            dtypes |= {str(m.dtype) for st in ck["optimizer"]["state"].values()
+                       for k, m in st.items() if k in ("exp_avg", "exp_avg_sq")}
+            steps = {float(st["step"]) for st in ck["optimizer"]["state"].values()}
+            print(f"AMP checkpoint {it}: iteration {ck['iteration']}, step_count "
+                  f"{ck['step_count']}, AdamW steps {sorted(steps)}, floating types "
+                  f"{sorted(dtypes)}", flush=True)
+            if (ck["iteration"] != it or ck["step_count"] != it or steps != {float(it)}
+                    or dtypes != {"torch.float32"}):
+                fail(f"AMP checkpoint {it}: {ck['iteration']}, {ck['step_count']}, {steps}, "
+                     f"{dtypes}")
+        return launches["fwd"], launches["bwd_bf16"], t["msda_launches"]["fwd"]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 # the Swin-L Trainer's cuts: those of TRAINER_CUTS (one card, the repository's
 # data, random weights) on configs/swinl_ovis.yaml
 SWIN_TRAINER_CUTS = [
@@ -1667,7 +1958,11 @@ def swin_paths(da, card):
 
     phase(f"main path: the Swin-L training step at full width ({card})")
     with recorded_sites(da) as train_seen:
-        train_fwd, train_bwd = train_full_width(torch, da, card, swin=True)
+        train_fwd, train_bwd, fp32_first = train_full_width(torch, da, card, swin=True)
+    phase(f"main path: the Swin-L AMP training step at full width ({card})")
+    with recorded_sites(da) as amp_seen:
+        amp_fwd, amp_bwd, _ = train_full_width(torch, da, card, swin=True, amp=True,
+                                               fp32_losses=fp32_first)
     phase("tiny Swin training step: the card's path against the port's CPU path")
     tiny_train_card_vs_cpu(torch, swin_tiny_cfg(2, 5))
 
@@ -1699,6 +1994,13 @@ def swin_paths(da, card):
                                     BWD_REPLACES, train_bwd[site], errs[site], t))
         entries.append(kernel_entry(f"ms_deform_attn_bwd[{site},swinl_trainer]", SOURCE,
                                     BWD_REPLACES, trainer_bwd[site], errs[site], t))
+    phase(f"bf16 kernels at the Swin-L AMP training call shapes ({card})")
+    f_err, b_err, f_t, b_t = bf16_sites(da, "swinl_train_amp", amp_seen["bwd"], card)
+    for site, t in b_t.items():
+        entries.append(kernel_entry(f"ms_deform_attn_fwd[{site},swinl_train_amp]", SOURCE,
+                                    f"{PALLAS}:121", amp_fwd[site], f_err[site], f_t[site]))
+        entries.append(kernel_entry(f"ms_deform_attn_bwd_bf16[{site},swinl_train_amp]",
+                                    SOURCE, BWD_BF16_REPLACES, amp_bwd[site], b_err[site], t))
     return entries
 
 
@@ -1841,7 +2143,8 @@ def main():
 
     # ---- 6. training -------------------------------------------------------------
     phase(f"main path: the training step at full width ({card})")
-    train_fwd_launches, train_bwd_launches = train_full_width(torch, da, card, bwd_timings)
+    train_fwd_launches, train_bwd_launches, fp32_first = train_full_width(
+        torch, da, card, bwd_timings)
     phase("tiny training step: the card's path against the port's CPU path")
     tiny_train_card_vs_cpu(torch)
 
@@ -1850,6 +2153,18 @@ def main():
     trainer_fwd, trainer_bwd, trainer_test_fwd = trainer_full_width(card)
     phase("tiny Trainer: the card's path against the port's CPU path")
     tiny_trainer_card_vs_cpu()
+
+    # ---- 6a. mixed precision (AMP) ---------------------------------------------------
+    phase(f"bf16 kernels at the R50 training call shapes against their oracles ({card})")
+    r50_seen = {site: collections.Counter({(B, Q, H, D, P, shapes, "bfloat16"): 1})
+                for site, B, Q, H, D, P, shapes, _ in BWD_CHECKS[:3]}
+    amp_ferr, amp_berr, amp_ft, amp_bt = bf16_sites(da, "train_amp", r50_seen, card)
+    phase(f"main path: the AMP training step at full width ({card})")
+    amp_fwd, amp_bwd, _ = train_full_width(torch, da, card, amp=True, fp32_losses=fp32_first)
+    phase("tiny AMP training step: the card's path against the port's CPU path")
+    tiny_train_card_vs_cpu(torch, amp=True)
+    phase(f"main path: the Trainer with SOLVER.AMP.ENABLED True ({card})")
+    amp_tr_fwd, amp_tr_bwd, amp_tr_test = amp_trainer(card)
 
     # ---- 6c. Swin-L -----------------------------------------------------------------
     swin_entries = swin_paths(da, card)
@@ -1881,6 +2196,19 @@ def main():
     for site, t in timings.items():
         kernels.append(kernel_entry(f"ms_deform_attn_fwd[{site},trainer_test]", SOURCE,
                                     t["replaces"], trainer_test_fwd[site], max_err[site], t))
+    # the AMP step's kernels (bf16 value): the synthetic step and the Trainer's
+    # steps (buckets up to 512x800: timed at 512x800), and the Trainer's tests
+    for site, t in amp_bt.items():
+        for path, fwd_n, bwd_n in (("train_amp", amp_fwd, amp_bwd),
+                                   ("trainer_amp", amp_tr_fwd, amp_tr_bwd)):
+            kernels.append(kernel_entry(f"ms_deform_attn_fwd[{site},{path}]", SOURCE,
+                                        f"{PALLAS}:121", fwd_n[site], amp_ferr[site],
+                                        amp_ft[site]))
+            kernels.append(kernel_entry(f"ms_deform_attn_bwd_bf16[{site},{path}]", SOURCE,
+                                        BWD_BF16_REPLACES, bwd_n[site], amp_berr[site], t))
+    for site, t in timings.items():
+        kernels.append(kernel_entry(f"ms_deform_attn_fwd[{site},trainer_amp_test]", SOURCE,
+                                    t["replaces"], amp_tr_test[site], max_err[site], t))
     for site, t in coco_timings.items():
         line = 569 if site == "encoder" else 121
         kernels.append(kernel_entry(f"ms_deform_attn_fwd[{site},coco]", SOURCE,

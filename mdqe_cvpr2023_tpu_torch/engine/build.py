@@ -73,8 +73,8 @@ def build_criterion_cfg(cfg: CfgNode) -> CriterionCfg:
 
 
 def build_train_cfg(cfg: CfgNode) -> TrainCfg:
-    """SOLVER.AMP.ENABLED is carried as ``amp``; ``make_optimizer`` raises on
-    it (ROADMAP queue 1, item 6)."""
+    """SOLVER.AMP.ENABLED is carried as ``amp``: the mixed-precision step
+    (``make_train_step(amp=...)``); parameters and AdamW state stay fp32."""
     s = cfg.SOLVER
     return TrainCfg(
         base_lr=float(s.BASE_LR),

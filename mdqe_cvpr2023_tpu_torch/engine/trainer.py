@@ -54,9 +54,11 @@ def _host_tensors(batch: Dict[str, np.ndarray], pin: bool) -> Dict[str, torch.Te
 
 
 def _launch_counts() -> Dict[str, Dict[str, int]]:
-    """The deformable-attention kernels' launch counts per call site, forward
-    and backward (they stay 0 on the CPU, where the plain version runs)."""
-    return {"fwd": dict(deform_attn.LAUNCHES), "bwd": dict(deform_attn.BWD_LAUNCHES)}
+    """The deformable-attention kernels' launch counts per call site: forward,
+    fp32 backward and bf16 backward (the AMP step's); they stay 0 on the CPU,
+    where the plain version runs."""
+    return {"fwd": dict(deform_attn.LAUNCHES), "bwd": dict(deform_attn.BWD_LAUNCHES),
+            "bwd_bf16": dict(deform_attn.BWD_BF16_LAUNCHES)}
 
 
 def _launches_since(before: Dict[str, Dict[str, int]]) -> Dict[str, Dict[str, int]]:
@@ -147,7 +149,8 @@ class Trainer:
         self.step_fn = make_train_step(
             self.crit_cfg, dropout_rate=float(cfg.MODEL.MDQE.DROPOUT),
             match_stride=cfg.MODEL.MDQE.MATCH_STRIDE,
-            pixel_mean=tuple(cfg.MODEL.PIXEL_MEAN), pixel_std=tuple(cfg.MODEL.PIXEL_STD))
+            pixel_mean=tuple(cfg.MODEL.PIXEL_MEAN), pixel_std=tuple(cfg.MODEL.PIXEL_STD),
+            amp=self.train_cfg.amp)
         self.iteration = 0
         # the last ``test``: clips, predictions, host seconds of predict_s,
         # rle_s (RLE encoding of the predicted masks) and evaluate_s, kernel

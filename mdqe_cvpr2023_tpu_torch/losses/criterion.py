@@ -9,6 +9,11 @@ random sampling is a masked top-k over random priorities with fixed caps (50T
 negatives, 10T positives per instance). The priorities come from the caller's
 ``torch.Generator``, or are given as a tensor (a test feeds the draws JAX makes
 from the same key). Videos are a batch axis here where the JAX package vmaps.
+
+``amp`` (mixed precision) keeps the large (Q, THW) mask tensors and their
+(Q, THW) x (THW, N) products in bf16 with fp32 sums (``matmul_f32``), and
+every sum over THW in fp32; the box and class terms and the final sums stay
+fp32. ``amp=False`` takes the same products in fp32.
 """
 from __future__ import annotations
 
@@ -20,7 +25,7 @@ import torch.nn.functional as F
 from ..utils.boxes import box_xyxy_to_cxcywh, video_box_iou
 from ..utils.misc import grid_sample, make_reference_points
 from .matcher import (batch_dice_cost, clip_peak_match, dynamic_k_matching,
-                      hungarian_match_costs)
+                      hungarian_match_costs, matmul_f32, pair_products)
 
 
 @dataclass(frozen=True)
@@ -91,10 +96,12 @@ def weighted_sigmoid_focal_loss(logits, targets, dist_weight, num_boxes,
 # ---------------------------------------------------------------------------
 
 def hungarian_layer_losses(cfg: CriterionCfg, cls_l, boxes_l, coeff_l, proto,
-                           targets):
+                           targets, amp: bool = False):
     """One decoder layer over the batch. cls_l (B,Q,K) logits; boxes_l
     (B,Q,T,4) xyxy; coeff_l (B,Q,M); proto (B,T,h,w,M); targets as
-    ``criterion_apply`` takes them."""
+    ``criterion_apply`` takes them. ``amp``: the mask terms in bf16 with fp32
+    sums (the JAX package's ``_per_video_layer(..., amp=True)``)."""
+    cdt = torch.bfloat16 if amp else torch.float32
     B, Q, K = cls_l.shape
     T = boxes_l.shape[2]
     gt_valid = targets["valid"]
@@ -102,11 +109,16 @@ def hungarian_layer_losses(cfg: CriterionCfg, cls_l, boxes_l, coeff_l, proto,
     N = gt_valid.shape[1]
     boxes = boxes_l.float()
     prob = torch.sigmoid(cls_l.float())
-    out_masks = torch.einsum("bqm,bthwm->bqthw", coeff_l.float(), proto.float())
+    # (B,Q,M) x (B,M,THW): under amp the product's fp32 sums rounded to bf16 once
+    _, Tp, h, w, M = proto.shape
+    out_masks = matmul_f32(coeff_l.to(cdt),
+                           proto.to(cdt).reshape(B, Tp * h * w, M).transpose(-1, -2))
+    out_masks = out_masks.to(cdt).reshape(B, Q, Tp, h, w)
 
     with torch.no_grad():  # the assignment takes no gradient
         cost, giou = hungarian_match_costs(prob, boxes, out_masks, targets["labels"],
-                                           gt_boxes, targets["match_masks"], gt_valid)
+                                           gt_boxes, targets["match_masks"], gt_valid,
+                                           compute_dtype=cdt)
         A = dynamic_k_matching(cost, giou, gt_valid)                   # (B,Q,N)
     num_matched = A.sum()
 
@@ -133,15 +145,13 @@ def hungarian_layer_losses(cfg: CriterionCfg, cls_l, boxes_l, coeff_l, proto,
     loss_giou_sum = (A[..., None] * (1.0 - giou_ft) * valid_ft[:, None]).sum()
 
     # masks (with the inter-instance repulsion when enabled)
-    tm = (targets["match_masks"].float()
-          * gt_valid[:, :, None, None, None]).reshape(B, N, -1)        # (B,N,THW)
+    tm = (targets["match_masks"].to(cdt)
+          * gt_valid[:, :, None, None, None].to(cdt)).reshape(B, N, -1)  # (B,N,THW)
     om = out_masks.reshape(B, Q, -1)
     thw = om.shape[-1]
     pos = F.softplus(-om)
     neg = F.softplus(om)
-
-    def mm(a, b):
-        return torch.einsum("bqp,bnp->bqn", a, b)
+    mm = pair_products  # (B,Q,THW) x (B,N,THW) -> (B,Q,N) fp32
 
     if cfg.interinst_enabled:
         # neighbour union (self included) per ground truth: video-box IoU of
@@ -152,26 +162,27 @@ def hungarian_layer_losses(cfg: CriterionCfg, cls_l, boxes_l, coeff_l, proto,
         biou = video_box_iou(adj, adj)[0].amax(-1)                      # (B,N,N)
         neighbor = (biou > cfg.interinst_threshold) & gt_valid[:, None] \
             & gt_valid[:, :, None]
-        u = (torch.einsum("bmn,bnp->bmp", neighbor.float(), (tm > 0.5).float())
-             > 0).float()
+        u = (matmul_f32(neighbor.to(cdt), (tm > 0.5).to(cdt)) > 0).to(cdt)
         # BCE with pixel weights (1 + union)
         w_t = tm * (1.0 + u)
         w_nt = (1.0 - tm) * (1.0 + u)
         bce_pair = mm(pos, w_t) + mm(neg, w_nt)
-        wsum = (1.0 + u).sum(-1).clamp(min=1.0)                         # (B,N)
+        wsum = (1.0 + u).sum(-1, dtype=torch.float32).clamp(min=1.0)   # (B,N)
         loss_mask_sum = (A * (bce_pair / wsum[:, None])).sum()
         # dice with the background-repulsion term (u' = u and not t)
-        up = u * (1.0 - (tm > 0.5).float())
+        up = u * (1.0 - (tm > 0.5).to(cdt))
         fg = torch.sigmoid(om)
         bg = torch.sigmoid(-om)
         num_pair = 2.0 * mm(fg, tm) + mm(bg, up)
-        den_pair = fg.sum(-1)[:, :, None] + tm.sum(-1)[:, None] + up.sum(-1)[:, None]
+        den_pair = (fg.sum(-1, dtype=torch.float32)[:, :, None]
+                    + tm.sum(-1, dtype=torch.float32)[:, None]
+                    + up.sum(-1, dtype=torch.float32)[:, None])
         dice_pair = 1.0 - (num_pair + 1.0) / (den_pair + 1.0)
         loss_dice_sum = (A * dice_pair).sum()
     else:
         bce_pair = (mm(pos, tm) + mm(neg, 1.0 - tm)) / thw
         loss_mask_sum = (A * bce_pair).sum()
-        loss_dice_sum = (A * batch_dice_cost(om, tm)).sum()
+        loss_dice_sum = (A * batch_dice_cost(om, tm, cdt)).sum()
 
     num_masks = num_matched.clamp(min=1.0)
     loss_cls = sigmoid_focal_loss(cls_l.reshape(B * Q, K),
@@ -312,14 +323,15 @@ def query_init_losses(cfg: CriterionCfg, rpn_logits, query_init_embed,
 # ---------------------------------------------------------------------------
 
 def criterion_apply(cfg: CriterionCfg, outputs, targets, relpos_grid,
-                    generator=None, reid_priorities=None):
+                    generator=None, reid_priorities=None, amp: bool = False):
     """outputs: the decoder's training dict ('cls' (L,B,Q,K), 'boxes'
     (L,B,Q,T,4), 'mask_coeff' (L,B,Q,M), 'proto' (BT,h,w,M), 'query_init').
     targets: 'labels' (B,N), 'ids' (B,N,T), 'boxes' (B,N,T,4) xyxy, 'valid'
     (B,N), 'match_masks' (B,N,T,h,w), 'masks8' (B,N,T,P8). relpos_grid (Q,Q,2)
     on the device. The reid priorities (B,N,2,T*Q) are drawn uniformly from
-    ``generator`` unless ``reid_priorities`` gives them. Returns (total, the
-    weighted losses by name)."""
+    ``generator`` unless ``reid_priorities`` gives them. ``amp``: the matched
+    mask losses in bf16 with fp32 sums (``hungarian_layer_losses``). Returns
+    (total, the weighted losses by name)."""
     L, B, Q, K = outputs["cls"].shape
     T = cfg.n_frames
     proto = outputs["proto"].reshape(B, T, *outputs["proto"].shape[1:])
@@ -336,7 +348,7 @@ def criterion_apply(cfg: CriterionCfg, outputs, targets, relpos_grid,
                                reid_priorities)
     for l in range(L):
         ld = hungarian_layer_losses(cfg, outputs["cls"][l], outputs["boxes"][l],
-                                    outputs["mask_coeff"][l], proto, targets)
+                                    outputs["mask_coeff"][l], proto, targets, amp)
         suffix = "" if l == L - 1 else f"_{l}"
         for k, v in ld.items():
             losses[k + suffix] = v

@@ -14,6 +14,11 @@ video and are vmapped. Invalid ground-truth slots are masked with large costs,
 and the data-dependent loops are fixed-trip Python loops over the instance
 capacity N with tensor ops inside. Ties break as in JAX: stable sorts, and
 first-occurrence ``argmin`` / ``argmax``.
+
+``compute_dtype`` bfloat16 (mixed precision) runs the large (Q, THW) x
+(THW, N) mask products on bf16 operands with fp32 sums (``matmul_f32``, the
+JAX package's ``preferred_element_type=float32``), and every sum over THW in
+fp32; float32 (the default) takes the same products in fp32.
 """
 from __future__ import annotations
 
@@ -26,24 +31,71 @@ INF = 1e5
 BIG = 1e9
 
 
-def batch_dice_cost(inputs, targets):
-    """inputs (..., Q, THW) logits, targets (..., N, THW) -> (..., Q, N) fp32."""
-    p = torch.sigmoid(inputs.float())
-    t = targets.float()
-    num = 2.0 * torch.einsum("...qp,...np->...qn", p, t)
-    den = p.sum(-1)[..., :, None] + t.sum(-1)[..., None, :]
+class _MatmulF32(torch.autograd.Function):
+    """bf16 a (..., M, K) @ b (..., K, N) with an fp32 result: on the card one
+    bf16 tensor-core GEMM that writes fp32 (``torch.bmm(..., out_dtype=
+    torch.float32)``); on the CPU, where that form is not implemented, the
+    product of the fp32 upcasts (exact: a product of two bf16 values fits
+    fp32's mantissa, so only the order of the fp32 sums differs). The
+    gradients are those of JAX's transpose rule: the fp32 output gradient
+    times the other operand upcast to fp32, cast to the operand's type."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        if a.device.type == "cuda":
+            lead = a.shape[:-2]
+            out = torch.bmm(a.reshape(-1, *a.shape[-2:]), b.reshape(-1, *b.shape[-2:]),
+                            out_dtype=torch.float32)
+            return out.reshape(*lead, *out.shape[-2:])
+        return torch.matmul(a.float(), b.float())
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = torch.matmul(g, b.float().transpose(-1, -2)).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            gb = torch.matmul(a.float().transpose(-1, -2), g).to(b.dtype)
+        return ga, gb
+
+
+def matmul_f32(a, b):
+    """a (..., M, K) @ b (..., K, N) as fp32: the fp32 product of fp32
+    operands, or of two bf16 operands the fp32-output product of
+    ``_MatmulF32`` (``jnp.einsum(..., preferred_element_type=float32)``)."""
+    if a.dtype == torch.bfloat16 and b.dtype == torch.bfloat16:
+        return _MatmulF32.apply(a, b)
+    return torch.matmul(a.float(), b.float())
+
+
+def pair_products(a, b):
+    """a (..., Q, P), b (..., N, P) -> (..., Q, N) fp32 sums over P: the
+    criterion's and matcher's (Q, THW) x (THW, N) mask products."""
+    return matmul_f32(a, b.transpose(-1, -2))
+
+
+def batch_dice_cost(inputs, targets, compute_dtype=torch.float32):
+    """inputs (..., Q, THW) logits, targets (..., N, THW) -> (..., Q, N) fp32;
+    sigmoid and products in ``compute_dtype``, sums in fp32."""
+    p = torch.sigmoid(inputs.to(compute_dtype))
+    t = targets.to(compute_dtype)
+    num = 2.0 * pair_products(p, t)
+    den = (p.sum(-1, dtype=torch.float32)[..., :, None]
+           + t.sum(-1, dtype=torch.float32)[..., None, :])
     return 1.0 - (num + 1.0) / (den + 1.0)
 
 
-def batch_sigmoid_ce_cost(inputs, targets):
+def batch_sigmoid_ce_cost(inputs, targets, compute_dtype=torch.float32):
     """inputs (..., Q, THW) logits, targets (..., N, THW) -> (..., Q, N) mean
-    BCE: BCE(x, 1) = softplus(-x), BCE(x, 0) = softplus(x)."""
-    x = inputs.float()
-    t = targets.float()
+    BCE: BCE(x, 1) = softplus(-x), BCE(x, 0) = softplus(x), in
+    ``compute_dtype`` with fp32 sums."""
+    x = inputs.to(compute_dtype)
+    t = targets.to(compute_dtype)
     pos = F.softplus(-x)
     neg = F.softplus(x)
-    return (torch.einsum("...qp,...np->...qn", pos, t)
-            + torch.einsum("...qp,...np->...qn", neg, 1.0 - t)) / x.shape[-1]
+    return (pair_products(pos, t) + pair_products(neg, 1.0 - t)) / x.shape[-1]
 
 
 def get_in_boxes_info(boxes, gt_boxes, expanded_strides: int = 32):
@@ -104,19 +156,21 @@ def dynamic_k_matching(cost, ious, gt_valid, n_candidate_k: int = 10):
 
 
 def hungarian_match_costs(out_prob, out_boxes, out_masks, tgt_labels, tgt_boxes,
-                          tgt_match_masks, gt_valid):
+                          tgt_match_masks, gt_valid, compute_dtype=torch.float32):
     """Cost assembly. out_prob (..., Q, K) sigmoid; out_boxes (..., Q, T, 4)
     xyxy; out_masks (..., Q, T, h, w) logits; tgt_labels (..., N); tgt_boxes
     (..., N, T, 4); tgt_match_masks (..., N, T, h, w); gt_valid (..., N).
-    Returns (cost (..., Q, N), giou (..., Q, N))."""
+    The mask costs run in ``compute_dtype`` with fp32 sums. Returns (cost
+    (..., Q, N), giou (..., Q, N)) fp32."""
     Q, K = out_prob.shape[-2:]
     labels = tgt_labels.long().clamp(0, K - 1)
     idx = labels[..., None, :].expand(*labels.shape[:-1], Q, labels.shape[-1])
     cost_class = -torch.gather(out_prob, -1, idx)                       # (..., Q, N)
 
-    tm = tgt_match_masks.flatten(-3).float()
+    tm = tgt_match_masks.flatten(-3).to(compute_dtype)
     om = out_masks.flatten(-3)
-    cost_mask = batch_sigmoid_ce_cost(om, tm) + batch_dice_cost(om, tm)
+    cost_mask = (batch_sigmoid_ce_cost(om, tm, compute_dtype)
+                 + batch_dice_cost(om, tm, compute_dtype))
 
     gt_wh = box_xyxy_to_cxcywh(tgt_boxes)[..., 2:]
     valid_box = (gt_wh > 0).all(-1)                                     # (..., N, T)

@@ -23,6 +23,7 @@ import torch
 from torch import nn
 
 from ..ops.deform_attn import ms_deform_attn
+from ..utils.nn import Linear
 
 SCALE = 8.0
 
@@ -71,17 +72,17 @@ class MSDeformAttn(nn.Module):
         self.site = site
         d = cfg.d_model
         n_out = cfg.n_heads * cfg.lvl * cfg.n_points * 2
-        self.value_proj = nn.Linear(d, d)
-        self.output_proj = nn.Linear(d, d)
-        self.attention_weights = nn.Linear(d, cfg.n_heads * cfg.lvl * cfg.n_points)
+        self.value_proj = Linear(d, d)
+        self.output_proj = Linear(d, d)
+        self.attention_weights = Linear(d, cfg.n_heads * cfg.lvl * cfg.n_points)
         self.register_buffer("lvl_spatial_scales",
                              torch.from_numpy(lvl_spatial_scales(cfg)))
         if cfg.pred_offsets:
-            self.sampling_offsets = nn.Linear(d, n_out)
+            self.sampling_offsets = Linear(d, n_out)
         else:
             self.register_buffer("sampling_offsets",
                                  torch.from_numpy(rot_grid(cfg)[None, None]))
-            self.sampling_grid_offsets = nn.Linear(d, n_out)
+            self.sampling_grid_offsets = Linear(d, n_out)
 
     @torch.no_grad()
     def reset_parameters(self, gen: torch.Generator):

@@ -17,7 +17,7 @@ from torch import nn
 
 from ..utils.boxes import box_cxcywh_to_xyxy, box_xyxy_to_cxcywh
 from ..utils.misc import grid_sample, interpolate_bilinear, inverse_sigmoid
-from ..utils.nn import MLP, LayerNorm, MultiheadAttention, dropout
+from ..utils.nn import MLP, LayerNorm, Linear, MultiheadAttention, dropout
 from .attention import MSDeformAttn, MSDeformAttnCfg
 from .mask_head import MaskHead, MaskHeadCfg
 
@@ -152,7 +152,7 @@ def clip_ref_boxes(cfg: DecoderCfg, x_ref_boxes, T: int):
     return box_xyxy_to_cxcywh(circ)
 
 
-def _init_linear(lin: nn.Linear, gen):
+def _init_linear(lin: Linear, gen):
     bound = 1.0 / math.sqrt(lin.in_features)
     lin.weight.uniform_(-bound, bound, generator=gen)
     lin.bias.uniform_(-bound, bound, generator=gen)
@@ -168,15 +168,15 @@ class DecoderLayer(nn.Module):
         self.norm1 = LayerNorm(d)
         self.cross_attn = MSDeformAttn(cfg.box_attn_cfg, site="decoder_box")
         self.norm2 = LayerNorm(d)
-        self.linear1 = nn.Linear(d, d_ffn)
-        self.linear2 = nn.Linear(d_ffn, d)
+        self.linear1 = Linear(d, d_ffn)
+        self.linear2 = Linear(d_ffn, d)
         self.norm3 = LayerNorm(d)
-        self.time_weights = nn.Linear(d, 1)
+        self.time_weights = Linear(d, 1)
         self.self_attn_inst = MultiheadAttention(d, cfg.n_heads)
         self.norm1_inst = LayerNorm(d)
         self.norm2_inst = LayerNorm(d)
-        self.linear1_inst = nn.Linear(d, d_ffn)
-        self.linear2_inst = nn.Linear(d_ffn, d)
+        self.linear1_inst = Linear(d, d_ffn)
+        self.linear2_inst = Linear(d_ffn, d)
         self.norm3_inst = LayerNorm(d)
         if cfg.use_tca:
             self.temp_attn_inst = MSDeformAttn(cfg.inst_attn_cfg, site="decoder_inst")
@@ -257,7 +257,7 @@ class TransformerDecoder(nn.Module):
         self.cfg = cfg
         self.decoder_norm = LayerNorm(d)
         self.bbox_embed = MLP(d, d, 4, 3)
-        self.point2pos_proj = nn.Linear(2, d)
+        self.point2pos_proj = Linear(2, d)
         self.decoder = DecoderLayers(cfg)
         self.rpn_cls_embed = MLP(d, d, cfg.num_classes, 3)
         self.cls_embed = MLP(d, d, cfg.num_classes, 3)

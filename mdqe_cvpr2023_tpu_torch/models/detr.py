@@ -10,6 +10,7 @@ transposes are at the boundaries noted below.
 """
 from __future__ import annotations
 
+import itertools
 import math
 from dataclasses import dataclass
 from typing import Optional, Sequence, Tuple
@@ -116,8 +117,9 @@ class MaskedBackbone(nn.Module):
 
 
 class DeformableDETR(nn.Module):
-    """``forward`` is ``detr_encode``; ``torch.func.functional_call`` runs it
-    with bf16 copies of the encode weights."""
+    """``forward`` is ``detr_encode``, or the training forward with
+    ``n_frames``; ``torch.func.functional_call`` runs it with bf16 copies of
+    the weights (the bf16 encode of inference, the AMP training forward)."""
 
     def __init__(self, cfg: MDQEModelCfg):
         super().__init__()
@@ -136,8 +138,17 @@ class DeformableDETR(nn.Module):
         self.transformer_enc = TransformerEncoder(cfg.encoder_cfg)
         self.transformer_dec = TransformerDecoder(cfg.decoder_cfg)
 
-    def forward(self, images, image_sizes):
-        return detr_encode(self, images, image_sizes)
+    def forward(self, images, image_sizes, n_frames: Optional[int] = None,
+                drop_rate: float = 0.0, generator=None):
+        """``detr_encode`` of a batch of frames; with ``n_frames``, encode and
+        the decoder's ``forward_train`` (``detr_apply_backbone``), in the
+        type of the images and weights it is given."""
+        if n_frames is None:
+            return detr_encode(self, images, image_sizes)
+        encoded, mask_flat, spatial_shapes = detr_encode(self, images, image_sizes,
+                                                         drop_rate, generator)
+        return self.transformer_dec.forward_train(encoded, mask_flat, spatial_shapes,
+                                                  n_frames, drop_rate, generator)
 
 
 def detr_backbone_features(detr: DeformableDETR, images, image_sizes, generator=None):
@@ -181,18 +192,31 @@ def detr_mask_feats(detr: DeformableDETR, encoded, spatial_shapes):
 
 
 def detr_apply_backbone(detr: DeformableDETR, images, image_sizes, n_frames: int,
-                        drop_rate: float = 0.0, generator=None):
+                        drop_rate: float = 0.0, generator=None, amp: bool = False):
     """The training forward, encode + decode (``detr_apply_backbone(...,
-    training=True)`` of the JAX package), fp32. images (BT,Hp,Wp,3)
+    training=True, amp=amp)`` of the JAX package). images (BT,Hp,Wp,3)
     normalized. Returns the decoder's training dict
     (``TransformerDecoder.forward_train``); dropout at ``drop_rate`` and a
     Swin backbone's stochastic depth draw from ``generator`` and are off
-    without one."""
-    encoded, mask_flat, spatial_shapes = detr_encode(detr, images, image_sizes,
-                                                     drop_rate, generator)
-    return detr.transformer_dec.forward_train(encoded.float(), mask_flat,
-                                              spatial_shapes, n_frames, drop_rate,
-                                              generator)
+    without one.
+
+    ``amp`` (mixed precision, SOLVER.AMP.ENABLED): the images and every
+    float32 parameter and buffer are cast to bf16 inside the autograd graph,
+    so the gradients reach the fp32 masters, and backbone, encoder and
+    decoder run on the bf16 copies (``torch.func.functional_call``), as the
+    JAX package casts its whole tree. The encoding stays bf16 into the
+    decoder. The fp32 islands are the JAX package's: norm statistics,
+    softmaxes, sampling locations and weights, the box path, and every
+    linear that meets an fp32 input (``utils.nn.linear``): the decoder's
+    query stream is fp32, since its queries are sampled from the bf16
+    encoding with fp32 weights."""
+    if not amp:
+        return detr(images, image_sizes, n_frames, drop_rate, generator)
+    named = itertools.chain(detr.named_parameters(), detr.named_buffers())
+    bf16 = {n: t.to(torch.bfloat16) for n, t in named if t.dtype == torch.float32}
+    return torch.func.functional_call(
+        detr, bf16, (images.to(torch.bfloat16), image_sizes, n_frames, drop_rate,
+                     generator))
 
 
 def detr_apply_coco(detr: DeformableDETR, images, image_sizes, n_frames: int):

@@ -13,7 +13,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..utils.misc import make_reference_points
-from ..utils.nn import LayerNorm, dropout
+from ..utils.nn import LayerNorm, Linear, dropout
 from .attention import MSDeformAttn, MSDeformAttnCfg
 
 
@@ -60,8 +60,8 @@ class EncoderLayer(nn.Module):
         d_ffn = int(cfg.dim * cfg.mlp_ratio)
         self.self_attn = MSDeformAttn(cfg.attn_cfg, site="encoder")
         self.norm1 = LayerNorm(cfg.dim)
-        self.linear1 = nn.Linear(cfg.dim, d_ffn)
-        self.linear2 = nn.Linear(d_ffn, cfg.dim)
+        self.linear1 = Linear(cfg.dim, d_ffn)
+        self.linear2 = Linear(d_ffn, cfg.dim)
         self.norm2 = LayerNorm(cfg.dim)
 
     def forward(self, x, x_pos, ref_boxes, spatial_shapes, padding_mask,

@@ -7,8 +7,9 @@
 //     cross-attention);
 //   - mdqe_cvpr2023_tpu/ops/deform_attn_pallas.py::_deform_attn_banded
 //     (block-permuted banded patches: encoder self-attention, Q == N).
-// The backward (msda_bwd_f32) replaces the four Pallas backward kernels, which
-// again compute one function in two formulations:
+// The backward (msda_bwd_f32, and msda_bwd_bf16 for a bf16 value: the
+// mixed-precision (AMP) training step) replaces the four Pallas backward
+// kernels, which again compute one function in two formulations:
 //   - _bwd_sample_kernel and _bwd_value_kernel (the transposed hat-matmul:
 //     d(locations), d(weights), d(value), per level);
 //   - the banded sample_kernel and value_kernel of _make_banded_bwd_kernels.
@@ -24,13 +25,15 @@
 // both pick the same corners where a coordinate sits on a pixel boundary.
 //
 // Layouts (all contiguous):
-//   value       (B, N, H, D)        fp32 or bf16 (backward: fp32 only)
+//   value       (B, N, H, D)        fp32 or bf16
 //   level_meta  (L, 3) int32        h, w, start row of each level
 //   loc         (B, Q, H, L, P, 2)  fp32
 //   attw        (B, Q, H, L, P)     fp32
 //   out         (B, Q, H * D)       fp32
 //   grad_out    (B, Q, H * D)       fp32
-//   grad_value  (B, N, H, D)        fp32, zeroed by the caller
+//   grad_value  (B, N, H, D)        fp32 whatever the value's type, zeroed by
+//                                   the caller (who casts it to bf16 after
+//                                   msda_bwd_bf16)
 //   grad_loc    (B, Q, H, L, P, 2)  fp32
 //   grad_attw   (B, Q, H, L, P)     fp32
 //
@@ -62,7 +65,7 @@
 // issue and load latency, not bytes. Here the coordinate work per useful FMA
 // falls by 32 / G (8x at D = 32) and each thread keeps 4-8 taps in flight.
 //
-// Backward design (msda_bwd_f32, fp32 only): the forward's work unit, one
+// Backward design (msda_bwd_f32; msda_bwd_bf16 below): the forward's work unit, one
 // thread per (b, q, head, 8 channels), the heads of a query side by side,
 // 128 threads a block. The G = D / 8 threads of a (q, head) are rounded up to
 // a power of two, Gp (1, 2, 4 or 8; at D = 48, G = 6 and Gp = 8, the two
@@ -93,6 +96,21 @@
 // warp's reductions writes whole rows (a full 128-byte line at D = 32)
 // rather than half rows: first the lower group's row, then the upper's. The
 // atomics make d(value)'s summation order vary from run to run.
+//
+// msda_bwd_bf16 (the AMP step's backward; the TPU's Pallas backward gets a
+// bf16 value there and computes in bf16, mdqe_cvpr2023_tpu/ops/deform_attn.py)
+// is the same kernel over a bf16 value: its thread holds 8 contiguous
+// channels, 8g .. 8g+7, loaded as one 16-byte vector and widened to fp32
+// exactly by shifts; every product and sum is fp32, and so is d(value):
+// it is scattered with the same red.global.add.v4.f32 (a thread's two
+// float4s now 4 channels apart instead of D/2, and the pair swap still makes
+// each reduction write whole rows) into an fp32 buffer that the wrapper casts
+// to bf16 once, as the JAX backward sums in fp32 and casts once. No bf16
+// atomics: their sums would round at every tap. grad_out, locations and
+// weights stay fp32 (the forward returns fp32, so the incoming gradient is
+// fp32). It reads half the value bytes of msda_bwd_f32 and sends the same
+// scatter to L2, which limits both (below), so it is expected to take about
+// fp32's time.
 //
 // Bound on this card. Bytes and flops give the least time: per (b, q, head)
 // the backward reads 4 rows of D values per point, the locations, weights
@@ -282,10 +300,37 @@ __global__ void __launch_bounds__(kBlock) msda_fwd_kernel(
 }
 
 
-// The backward's 8 channels of a row: 4 at p, 4 at p + half.
-__device__ __forceinline__ void load_split(Vec8<float>& v, const float* p, int half) {
+// The backward's 8 channels of a row: 4 at p and 4 at p + split, where
+// (BwdChannels) fp32 takes channels 4g .. 4g+3 and D/2 + 4g .. (split = D/2)
+// and bf16 the 8 contiguous 8g .. 8g+7 (split = 4, one 16-byte load).
+__device__ __forceinline__ void load_split(Vec8<float>& v, const float* p, int split) {
   v.lo = __ldg(reinterpret_cast<const float4*>(p));
-  v.hi = __ldg(reinterpret_cast<const float4*>(p + half));
+  v.hi = __ldg(reinterpret_cast<const float4*>(p + split));
+}
+__device__ __forceinline__ void load_split(Vec8<__nv_bfloat16>& v, const __nv_bfloat16* p,
+                                           int) {
+  v.u = __ldg(reinterpret_cast<const uint4*>(p));
+}
+
+template <typename T> struct BwdChannels;
+template <> struct BwdChannels<float> {
+  __device__ static int base(int g) { return 4 * g; }
+  __device__ static int second(int D) { return D >> 1; }
+};
+template <> struct BwdChannels<__nv_bfloat16> {
+  __device__ static int base(int g) { return 8 * g; }
+  __device__ static int second(int) { return 4; }
+};
+
+// A loaded row as 8 fp32 channels (bf16 -> fp32 is exact: the high half).
+__device__ __forceinline__ const Vec8<float>& widen(const Vec8<float>& v) { return v; }
+__device__ __forceinline__ Vec8<float> widen(const Vec8<__nv_bfloat16>& v) {
+  Vec8<float> r;
+  r.lo = make_float4(__uint_as_float(v.u.x << 16), __uint_as_float(v.u.x & 0xffff0000u),
+                     __uint_as_float(v.u.y << 16), __uint_as_float(v.u.y & 0xffff0000u));
+  r.hi = make_float4(__uint_as_float(v.u.z << 16), __uint_as_float(v.u.z & 0xffff0000u),
+                     __uint_as_float(v.u.w << 16), __uint_as_float(v.u.w & 0xffff0000u));
+  return r;
 }
 
 // d(value) scatter: 4 contiguous fp32 added into global memory by one
@@ -307,14 +352,14 @@ __device__ __forceinline__ float4 shfl_xor4(float4 v, int lane_mask) {
                      __shfl_xor_sync(0xffffffffu, v.w, lane_mask));
 }
 
-template <int kGp>
+template <typename T, int kGp>
 __global__ void __launch_bounds__(kBwdThreads) msda_bwd_kernel(
-    const float* __restrict__ value, const int* __restrict__ level_meta,
+    const T* __restrict__ value, const int* __restrict__ level_meta,
     const float* __restrict__ loc, const float* __restrict__ attw,
     const float* __restrict__ grad_out, float* __restrict__ grad_value,
     float* __restrict__ grad_loc, float* __restrict__ grad_attw,
     int B, int N, int Q, int H, int D, int L, int P) {
-  constexpr int kPU = 2;  // points per step: 8 taps of two float4 in flight
+  constexpr int kPU = 2;  // points per step: 8 taps' 16-byte loads in flight
   __shared__ int s_meta[3 * kMaxLevels];  // h, w, start of each level
   for (int i = threadIdx.x; i < 3 * L; i += kBwdThreads) s_meta[i] = level_meta[i];
   __syncthreads();
@@ -333,9 +378,10 @@ __global__ void __launch_bounds__(kBwdThreads) msda_bwd_kernel(
   const int64_t b = item / H / Q;
   const int LP = L * P;
   const int row_stride = H * D;  // elements between pixels
-  const int half = D >> 1;  // this thread's channels: 4g .. 4g+3 and half + 4g ..
-  const int64_t bh_off = b * (int64_t)N * row_stride + h * D + 4 * g;
-  const float* v_bh = value + bh_off;
+  // this thread's channels: base .. base+3 and base+split .. base+split+3
+  const int split = BwdChannels<T>::second(D);
+  const int64_t bh_off = b * (int64_t)N * row_stride + h * D + BwdChannels<T>::base(g);
+  const T* v_bh = value + bh_off;
   float* gv_bh = grad_value + bh_off;
   const float* loc_i = loc + item * LP * 2;
   const float* aw_i = attw + item * LP;
@@ -345,7 +391,7 @@ __global__ void __launch_bounds__(kBwdThreads) msda_bwd_kernel(
 
   Vec8<float> go;  // this thread's 8 channels of the output gradient
   if (live) {
-    load_split(go, grad_out + item * D + 4 * g, half);
+    load_split(go, grad_out + item * D + BwdChannels<T>::base(g), split);
   } else {
     zero8(go);
   }
@@ -376,7 +422,7 @@ __global__ void __launch_bounds__(kBwdThreads) msda_bwd_kernel(
           a[u] = in ? __ldg(aw_i + i0 + u) : 0.f;
         }
       }
-      Vec8<float> v[kPU][4];
+      Vec8<T> v[kPU][4];
       int row[kPU][4];  // corner's offset from the level's first row; -1 out of range
       float fx[kPU], fy[kPU];
 #pragma unroll
@@ -401,7 +447,7 @@ __global__ void __launch_bounds__(kBwdThreads) msda_bwd_kernel(
           const bool ok = live && cx >= 0 && cx < wl && cy >= 0 && cy < hl;
           row[u][c] = ok ? lvl + (cy * wl + cx) * row_stride : -1;
           if (ok) {
-            load_split(v[u][c], v_bh + row[u][c], half);
+            load_split(v[u][c], v_bh + row[u][c], split);
           } else {
             zero8(v[u][c]);
           }
@@ -415,7 +461,7 @@ __global__ void __launch_bounds__(kBwdThreads) msda_bwd_kernel(
         for (int c = 0; c < 4; ++c) {
           const float wx = (c & 1) ? fx[u] : 1.f - fx[u];
           const float wy = (c >> 1) ? fy[u] : 1.f - fy[u];
-          const Vec8<float>& r = v[u][c];
+          const Vec8<float> r = widen(v[u][c]);
           const float dot = go.lo.x * r.lo.x + go.lo.y * r.lo.y + go.lo.z * r.lo.z +
                             go.lo.w * r.lo.w + go.hi.x * r.hi.x + go.hi.y * r.hi.y +
                             go.hi.z * r.hi.z + go.hi.w * r.hi.w;
@@ -436,7 +482,7 @@ __global__ void __launch_bounds__(kBwdThreads) msda_bwd_kernel(
           const float4 got = shfl_xor4(upper ? lo : hi, kGp);
           float* first = upper ? theirs : mine;
           float* second = upper ? mine : theirs;
-          const int col = upper ? half : 0;  // this lane's half of the row
+          const int col = upper ? split : 0;  // this lane's half of the row
           if (first) red_add4(first + col, upper ? got : lo);
           if (second) red_add4(second + col, upper ? hi : got);
         }
@@ -507,6 +553,7 @@ int launch(const void* value, const void* level_meta, const void* loc,
   }
 }
 
+template <typename T>
 int launch_bwd(const void* value, const void* level_meta, const void* loc,
                const void* attw, const void* grad_out, void* grad_value,
                void* grad_loc, void* grad_attw, int B, int N, int Q, int H,
@@ -522,7 +569,7 @@ int launch_bwd(const void* value, const void* level_meta, const void* loc,
   const int64_t blocks = (total * Gp + kBwdThreads - 1) / kBwdThreads;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const float* v = static_cast<const float*>(value);
+  const T* v = static_cast<const T*>(value);
   const int* m = static_cast<const int*>(level_meta);
   const float* lo = static_cast<const float*>(loc);
   const float* aw = static_cast<const float*>(attw);
@@ -533,20 +580,20 @@ int launch_bwd(const void* value, const void* level_meta, const void* loc,
   const unsigned nb = (unsigned)blocks;
   switch (Gp) {
     case 1:
-      msda_bwd_kernel<1><<<nb, kBwdThreads, 0, s>>>(v, m, lo, aw, go, gv, gl, ga, B, N, Q, H,
-                                                    D, L, P);
+      msda_bwd_kernel<T, 1><<<nb, kBwdThreads, 0, s>>>(v, m, lo, aw, go, gv, gl, ga, B, N, Q,
+                                                       H, D, L, P);
       break;
     case 2:
-      msda_bwd_kernel<2><<<nb, kBwdThreads, 0, s>>>(v, m, lo, aw, go, gv, gl, ga, B, N, Q, H,
-                                                    D, L, P);
+      msda_bwd_kernel<T, 2><<<nb, kBwdThreads, 0, s>>>(v, m, lo, aw, go, gv, gl, ga, B, N, Q,
+                                                       H, D, L, P);
       break;
     case 4:
-      msda_bwd_kernel<4><<<nb, kBwdThreads, 0, s>>>(v, m, lo, aw, go, gv, gl, ga, B, N, Q, H,
-                                                    D, L, P);
+      msda_bwd_kernel<T, 4><<<nb, kBwdThreads, 0, s>>>(v, m, lo, aw, go, gv, gl, ga, B, N, Q,
+                                                       H, D, L, P);
       break;
     default:
-      msda_bwd_kernel<8><<<nb, kBwdThreads, 0, s>>>(v, m, lo, aw, go, gv, gl, ga, B, N, Q, H,
-                                                    D, L, P);
+      msda_bwd_kernel<T, 8><<<nb, kBwdThreads, 0, s>>>(v, m, lo, aw, go, gv, gl, ga, B, N, Q,
+                                                       H, D, L, P);
   }
   return (int)cudaGetLastError();
 }
@@ -587,8 +634,17 @@ int msda_bwd_f32(const void* value, const void* level_meta, const void* loc,
                  const void* attw, const void* grad_out, void* grad_value,
                  void* grad_loc, void* grad_attw, int B, int N, int Q, int H,
                  int D, int L, int P, void* stream) {
-  return launch_bwd(value, level_meta, loc, attw, grad_out, grad_value, grad_loc,
-                    grad_attw, B, N, Q, H, D, L, P, stream);
+  return launch_bwd<float>(value, level_meta, loc, attw, grad_out, grad_value, grad_loc,
+                           grad_attw, B, N, Q, H, D, L, P, stream);
+}
+
+// value bf16; grad_value is fp32 (the wrapper casts it to bf16).
+int msda_bwd_bf16(const void* value, const void* level_meta, const void* loc,
+                  const void* attw, const void* grad_out, void* grad_value,
+                  void* grad_loc, void* grad_attw, int B, int N, int Q, int H,
+                  int D, int L, int P, void* stream) {
+  return launch_bwd<__nv_bfloat16>(value, level_meta, loc, attw, grad_out, grad_value,
+                                   grad_loc, grad_attw, B, N, Q, H, D, L, P, stream);
 }
 
 const char* msda_error_string(int code) {

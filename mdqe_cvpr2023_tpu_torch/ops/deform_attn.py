@@ -13,13 +13,16 @@ pixel coordinate = loc * size - 0.5; a corner outside the level counts zero.
 
 ``ms_deform_attn`` sends a CPU tensor to the plain version (autograd
 differentiates it) and a CUDA tensor to ``MSDeformAttnFunction``, whose forward
-launches ``msda_fwd_*`` and whose backward launches ``msda_bwd_f32``; it never
-falls back. Each call site keeps its own forward launch count in ``LAUNCHES``
-and backward launch count in ``BWD_LAUNCHES``, raised only where the kernel is
-launched. ``ms_deform_attn_cuda_block`` launches the forward kernel at a
-chosen block size for the kernel tools, counted in
-``BLOCK_LAUNCHES``. ``msda_bwd_f32`` accumulates d(value) with 16-byte vector
-atomics, so its summation order, and its last bits, vary from run to run. The
+launches ``msda_fwd_*`` and whose backward launches ``msda_bwd_f32`` (fp32
+value) or ``msda_bwd_bf16`` (bf16 value: the mixed-precision training step);
+it never falls back. Each call site keeps its own forward launch count in
+``LAUNCHES`` and backward launch counts in ``BWD_LAUNCHES`` (fp32) and
+``BWD_BF16_LAUNCHES`` (bf16), raised only where the kernel is launched.
+``ms_deform_attn_cuda_block`` launches the forward kernel at a chosen block
+size for the kernel tools, counted in ``BLOCK_LAUNCHES``. The backward
+kernels accumulate d(value) in fp32 with 16-byte vector atomics (bf16: into
+an fp32 buffer cast to bf16 once), so its summation order, and its last
+bits, vary from run to run. The
 kernels take D % 8 == 0, D <= 64, L <= 32 and 16-byte aligned inputs, the
 backward's output gradient included (``_check_kernel_inputs``); the outputs
 are allocated here.
@@ -35,6 +38,7 @@ from . import _build
 
 LAUNCHES = {"encoder": 0, "decoder_box": 0, "decoder_inst": 0}
 BWD_LAUNCHES = {"encoder": 0, "decoder_box": 0, "decoder_inst": 0}
+BWD_BF16_LAUNCHES = {"encoder": 0, "decoder_box": 0, "decoder_inst": 0}
 VALUE_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 BLOCK_THREADS = (64, 128, 256, 512)
 # launches of the block-size launchers (the kernel tools), per value type and
@@ -43,9 +47,9 @@ BLOCK_LAUNCHES = {f"{v}_t{t}": 0 for v in VALUE_DTYPES.values() for t in BLOCK_T
 
 
 def reset_launches() -> None:
-    """Zero the forward and the backward counts of every site, and the block
-    launchers' counts."""
-    for counts in (LAUNCHES, BWD_LAUNCHES, BLOCK_LAUNCHES):
+    """Zero the forward and the backward counts (both value types) of every
+    site, and the block launchers' counts."""
+    for counts in (LAUNCHES, BWD_LAUNCHES, BWD_BF16_LAUNCHES, BLOCK_LAUNCHES):
         for k in counts:
             counts[k] = 0
 
@@ -210,40 +214,45 @@ def ms_deform_attn_cuda_block(value, spatial_shapes: Sequence[Tuple[int, int]],
 def ms_deform_attn_bwd_cuda(value, spatial_shapes: Sequence[Tuple[int, int]],
                             sampling_locations, attention_weights, grad_output,
                             site: Optional[str] = None):
-    """Launch ``msda_bwd_f32`` on the current stream: the gradients of the
-    forward's output, given ``grad_output`` (B, Q, H*D), with respect to value,
-    locations and weights. ``site`` as in ``ms_deform_attn_cuda``, counted in
-    ``BWD_LAUNCHES``."""
+    """Launch the backward kernel on the current stream: ``msda_bwd_f32`` for
+    a float32 value, ``msda_bwd_bf16`` for a bfloat16 one. Returns the
+    gradients of the forward's output, given ``grad_output`` (B, Q, H*D)
+    float32, with respect to value (in the value's type; the bf16 kernel sums
+    into float32 and the cast rounds once), locations and weights. ``site``
+    as in ``ms_deform_attn_cuda``, counted in ``BWD_LAUNCHES`` (fp32) or
+    ``BWD_BF16_LAUNCHES`` (bf16)."""
+    if value.dtype not in VALUE_DTYPES:
+        raise TypeError(f"the backward kernel takes float32 or bfloat16 value, got "
+                        f"{value.dtype}")
     shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
     B, N, Q, H, D, L, P = _check_kernel_inputs(value, shapes, sampling_locations,
                                                attention_weights, grad_output)
-    if value.dtype != torch.float32:
-        raise TypeError(f"the backward kernel takes float32 value, got {value.dtype}: "
-                        "mixed-precision (AMP) training is not ported")
     if tuple(grad_output.shape) != (B, Q, H * D) or grad_output.dtype != torch.float32:
         raise ValueError(f"grad_output must be float32 {(B, Q, H * D)}, got "
                          f"{grad_output.dtype} {tuple(grad_output.shape)}")
 
+    fn_name = f"msda_bwd_{VALUE_DTYPES[value.dtype]}"
     lib = _build.load("ms_deform_attn")
     meta = _level_meta(shapes, str(value.device))
-    grad_value = torch.zeros_like(value)
+    grad_value = torch.zeros(value.shape, dtype=torch.float32, device=value.device)
     grad_loc = torch.empty_like(sampling_locations)
     grad_attw = torch.empty_like(attention_weights)
     stream = torch.cuda.current_stream(value.device).cuda_stream
-    err = lib.msda_bwd_f32(value.data_ptr(), meta.data_ptr(),
-                           sampling_locations.data_ptr(),
-                           attention_weights.data_ptr(), grad_output.data_ptr(),
-                           grad_value.data_ptr(), grad_loc.data_ptr(),
-                           grad_attw.data_ptr(), B, N, Q, H, D, L, P, stream)
-    _raise_on(lib, "msda_bwd_f32", err)
+    err = getattr(lib, fn_name)(value.data_ptr(), meta.data_ptr(),
+                                sampling_locations.data_ptr(),
+                                attention_weights.data_ptr(), grad_output.data_ptr(),
+                                grad_value.data_ptr(), grad_loc.data_ptr(),
+                                grad_attw.data_ptr(), B, N, Q, H, D, L, P, stream)
+    _raise_on(lib, fn_name, err)
     if site is not None:
-        BWD_LAUNCHES[site] += 1
-    return grad_value, grad_loc, grad_attw
+        counts = BWD_LAUNCHES if value.dtype == torch.float32 else BWD_BF16_LAUNCHES
+        counts[site] += 1
+    return grad_value.to(value.dtype), grad_loc, grad_attw
 
 
 class MSDeformAttnFunction(torch.autograd.Function):
     """The CUDA kernels as one differentiable op: forward ``msda_fwd_*``,
-    backward ``msda_bwd_f32``."""
+    backward ``msda_bwd_f32`` or ``msda_bwd_bf16`` by the value's type."""
 
     @staticmethod
     def forward(ctx, value, spatial_shapes, sampling_locations, attention_weights,

@@ -3,7 +3,9 @@
 the backward (through the CUDA deformable-attention backward kernel on the
 card) and AdamW with the backbone at x0.1 LR, the frozen set and the global-norm
 clip, all as the JAX package's ``make_optimizer`` / ``make_train_step`` compute
-them. Data parallelism over several cards is not ported yet.
+them, in fp32 or, with ``amp``, in mixed precision (bf16 model and mask
+products, fp32 islands, sums and masters). Data parallelism over several
+cards is not ported yet.
 """
 from __future__ import annotations
 
@@ -34,8 +36,9 @@ class TrainCfg:
     # Detectron2's MODEL.BACKBONE.FREEZE_AT: 1 freezes the ResNet stem, 2 the
     # stem and res2 (``models/detr.py::is_frozen``)
     freeze_at: int = 2
-    # SOLVER.AMP.ENABLED: the bf16 step is not ported (the backward kernel
-    # takes fp32 only); ``make_optimizer`` raises when it is set
+    # SOLVER.AMP.ENABLED: bf16 backbone, encoder, decoder and mask products
+    # with fp32 islands and sums; parameters and AdamW state stay fp32
+    # (``make_train_step(amp=...)``)
     amp: bool = False
 
 
@@ -74,10 +77,6 @@ class _Optimizer:
     steps AdamW."""
 
     def __init__(self, model: MDQEModel, tc: TrainCfg):
-        if tc.amp:
-            raise NotImplementedError(
-                "AMP training is not ported (ROADMAP queue 1, item 6): the "
-                "deformable-attention backward kernel has no bf16 form yet")
         self.tc = tc
         model.set_trainable(tc.freeze_at)
         backbone, rest = [], []
@@ -139,34 +138,39 @@ def _relpos(n_query: int, device: str) -> torch.Tensor:
 
 def loss_fn(model: MDQEModel, crit_cfg: CriterionCfg, batch, generator=None,
             dropout_rate: float = 0.1, reid_priorities=None,
-            match_stride: int = MATCH_STRIDE, pixel_mean=PIXEL_MEAN, pixel_std=PIXEL_STD):
+            match_stride: int = MATCH_STRIDE, pixel_mean=PIXEL_MEAN, pixel_std=PIXEL_STD,
+            amp: bool = False):
     """The loss of ``make_train_step``: images (BT,Hp,Wp,3) raw uint8 (or
     float) normalized on the device, the training forward with dropout from
-    ``generator``, the criterion. Returns (total, the weighted losses)."""
+    ``generator``, the criterion; both in mixed precision with ``amp``.
+    Returns (total, the weighted losses), fp32."""
     images = batch["images"]
     dev = images.device
     mean = torch.tensor(pixel_mean, dtype=torch.float32, device=dev)
     std = torch.tensor(pixel_std, dtype=torch.float32, device=dev)
     images = (images.float() - mean) / std
     out = detr_apply_backbone(model.detr, images, batch["image_sizes"],
-                              crit_cfg.n_frames, dropout_rate, generator)
+                              crit_cfg.n_frames, dropout_rate, generator, amp)
     match_masks, masks8 = prepare_targets_device(batch["masks"], images.shape[1:3],
                                                  match_stride)
     targets = {"labels": batch["labels"], "ids": batch["ids"], "boxes": batch["boxes"],
                "valid": batch["valid"], "match_masks": match_masks, "masks8": masks8}
     return criterion_apply(crit_cfg, out, targets, _relpos(crit_cfg.n_query, str(dev)),
-                           generator, reid_priorities)
+                           generator, reid_priorities, amp)
 
 
 def make_train_step(crit_cfg: CriterionCfg, dropout_rate: float = 0.1,
                     match_stride: int = MATCH_STRIDE, pixel_mean=PIXEL_MEAN,
-                    pixel_std=PIXEL_STD):
+                    pixel_std=PIXEL_STD, amp: bool = False):
     """Returns ``train_step(model, optimizer, batch, generator,
     reid_priorities=None) -> (total, loss_dict)``: one optimizer step. The
     batch's tensors and ``generator`` (dropout masks and reid priorities) are
-    on the model's device. Matmuls and convolutions run in full fp32 (TF32
-    off). The returned losses are device tensors; nothing here waits for the
-    card."""
+    on the model's device. fp32 matmuls and convolutions run in full fp32
+    (TF32 off); with ``amp`` the forward runs on bf16 copies of the weights
+    and the criterion's mask products in bf16 with fp32 sums
+    (``detr_apply_backbone``, ``criterion_apply``), while the parameters,
+    their gradients, the clip and AdamW stay fp32. The returned losses are
+    device tensors; nothing here waits for the card."""
 
     def train_step(model: MDQEModel, optimizer: _Optimizer, batch, generator,
                    reid_priorities=None):
@@ -174,7 +178,7 @@ def make_train_step(crit_cfg: CriterionCfg, dropout_rate: float = 0.1,
         torch.backends.cudnn.allow_tf32 = False
         optimizer.zero_grad()
         total, ldict = loss_fn(model, crit_cfg, batch, generator, dropout_rate,
-                               reid_priorities, match_stride, pixel_mean, pixel_std)
+                               reid_priorities, match_stride, pixel_mean, pixel_std, amp)
         total.backward()
         optimizer.step()
         return total.detach(), {k: v.detach() for k, v in ldict.items()}

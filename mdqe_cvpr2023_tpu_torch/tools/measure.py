@@ -121,16 +121,18 @@ def msda_bound(value, shapes, loc, attw):
 
 def msda_bwd_bound(value, shapes, loc, attw):
     """Least time of the backward on an H100: the larger of (bytes: the value
-    rows the in-range taps touch, read; d(value) written once in full;
-    locations, weights and the output gradient read; d(locations) and
-    d(weights) written) over HBM bandwidth and (8*D flops per in-range tap:
-    the sample, its two derivatives, the scattered product) over fp32 peak.
-    Returns (ms, bound_by, bytes, the kernel's 16-byte vector atomics: one
-    per 4 channels of every in-range tap, which the bound does not count)."""
+    rows the in-range taps touch, read; d(value) written once in full, both
+    in the value's type; locations, weights and the output gradient read,
+    fp32; d(locations) and d(weights) written, fp32) over HBM bandwidth and
+    (8*D flops per in-range tap: the sample, its two derivatives, the
+    scattered product) over fp32 peak. Returns (ms, bound_by, bytes, the
+    kernel's 16-byte vector atomics: one per 4 channels of every in-range
+    tap, which the bound does not count)."""
     B, N, H, D = value.shape
     Q = loc.shape[1]
     touched, taps = msda_taps(value, shapes, loc)
-    nbytes = (touched * D * 4 + value.numel() * 4 + 2 * loc.numel() * 4
+    esize = value.element_size()
+    nbytes = (touched * D * esize + value.numel() * esize + 2 * loc.numel() * 4
               + 2 * attw.numel() * 4 + B * Q * H * D * 4)
     ms, by = _bound(nbytes, 8.0 * D * taps, FP32_FLOP_PER_S)
     return ms, by, nbytes, taps * D // 4

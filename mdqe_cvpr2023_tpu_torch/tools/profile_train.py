@@ -7,16 +7,18 @@ frames, 512x800 padded frames, 20 instance slots, 25 classes; hidden 256, 8
 heads, 6+6 layers, 196 queries; fp32, TF32 off), or with ``--backbone swinl``
 at the Swin-L one (``configs/swinl_ovis.yaml``'s largest bucket: 2 clips of 2
 frames of 736x1024, Swin-L v2 with drop path 0.2), on a synthetic batch from
-a seed, with random weights. Prints s/step and clips/s on the host clock (steps
-ending in a synchronize), peak device memory, and from steps run under
-``torch.profiler``: the device-busy share (union of kernel intervals over the
-wall time), the kernels by total device time and the share of the
+a seed, with random weights; with ``--amp`` the mixed-precision step
+(SOLVER.AMP.ENABLED: bf16 forward and mask products, fp32 sums and masters,
+the bf16 backward kernel ``msda_bwd_bf16``). Prints s/step and clips/s on the
+host clock (steps ending in a synchronize), peak device memory, and from steps
+run under ``torch.profiler``: the device-busy share (union of kernel intervals
+over the wall time), the kernels by total device time and the share of the
 deformable-attention backward kernel (``msda_bwd``) in the device time; then,
 from one more step profiled with input shapes recorded (which costs host time,
 so it is kept out of the busy share), the operators by their own device time.
 
 Usage: python3 -m mdqe_cvpr2023_tpu_torch.tools.profile_train [--steps N]
-           [--backbone r50|swinl]
+           [--backbone r50|swinl] [--amp]
 """
 from __future__ import annotations
 
@@ -39,6 +41,8 @@ def main():
     parser.add_argument("--steps", type=int, default=3, help="timed and profiled steps")
     parser.add_argument("--backbone", choices=("r50", "swinl"), default="r50",
                         help="the training geometry: R50 (TRAIN_CFG) or Swin-L")
+    parser.add_argument("--amp", action="store_true",
+                        help="the mixed-precision step (SOLVER.AMP.ENABLED)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
@@ -52,8 +56,8 @@ def main():
     else:
         cfg, crit, batch = ptrain.TRAIN_CFG, ptrain.TRAIN_CRIT, synthetic_batch()
     model = MDQEModel(cfg, device="cuda", seed=0)
-    opt = ptrain.make_optimizer(model, ptrain.TrainCfg())
-    step = ptrain.make_train_step(crit)
+    opt = ptrain.make_optimizer(model, ptrain.TrainCfg(amp=args.amp))
+    step = ptrain.make_train_step(crit, amp=args.amp)
     batch = to_device(batch, "cuda")
     gen = torch.Generator(device="cuda").manual_seed(0)
     step(model, opt, batch, gen)  # warm-up (cuDNN algorithm choice, allocator)
@@ -89,7 +93,8 @@ def main():
     top_ops = [(a.key, str(a.input_shapes)[:120], round(a.self_device_time_total / 1e3, 3),
                 a.count) for a in ops]
     print(json.dumps({
-        "card": card, "backbone": cfg.backbone, "steps": args.steps, "s_per_step": walls,
+        "card": card, "backbone": cfg.backbone, "amp": args.amp, "steps": args.steps,
+        "s_per_step": walls,
         "clips_per_s": [CLIPS / w for w in walls],
         "peak_memory_gib": peak / 2 ** 30, "profiled_wall_s": prof_wall,
         "device_busy_share": busy if busy is not None else "not measured",

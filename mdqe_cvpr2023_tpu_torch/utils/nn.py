@@ -2,10 +2,12 @@
 
 Counterpart of ``mdqe_cvpr2023_tpu/utils/nn.py``. Parameter shapes follow the
 torch conventions the JAX tree already uses (Linear (out, in), Conv OIHW), so
-weights move between the two by name alone, and linears and convolutions are
-torch's own ``nn.Linear`` / ``nn.Conv2d``. Convolutions and norms here take
-NCHW (cuDNN's layout); token tensors are (..., C) as in the JAX package.
-Norm statistics are fp32 whatever the activation type (bf16-safe), as there.
+weights move between the two by name alone; convolutions are torch's own
+``nn.Conv2d`` and linears ``Linear``, an ``nn.Linear`` that computes in the
+promoted type of its input and weight as the JAX package's einsum does
+(``linear``). Convolutions and norms here take NCHW (cuDNN's layout); token
+tensors are (..., C) as in the JAX package. Norm statistics and the attention
+softmax are fp32 whatever the activation type (bf16-safe), as there.
 """
 from __future__ import annotations
 
@@ -14,6 +16,17 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+
+def linear(x, weight, bias=None):
+    """x (..., in) @ weight (out, in)^T + bias in the promoted type of x and
+    weight, as ``jnp.einsum`` promotes in the JAX package's ``linear``: under
+    mixed precision an fp32 input meets bf16 weights in the decoder (its
+    query stream is fp32 there) and is computed in fp32, where ``F.linear``
+    would raise on the mixed types. The same as ``F.linear`` when the types
+    agree."""
+    dt = torch.promote_types(x.dtype, weight.dtype)
+    return F.linear(x.to(dt), weight.to(dt), None if bias is None else bias.to(dt))
 
 
 def layer_norm(x, weight, bias, eps: float = 1e-5):
@@ -49,20 +62,21 @@ def conv_transpose2d_up2(x, weight, bias):
 def mha(q, k, v, in_proj_weight, in_proj_bias, out_weight, out_bias,
         num_heads: int):
     """torch nn.MultiheadAttention (batch_first) as matmul + softmax.
-    q, k, v (B, L, C); softmax in fp32."""
+    q, k, v (B, L, C); projections in the promoted type of input and weights
+    (``linear``); softmax in fp32."""
     C = q.shape[-1]
     wq, wk, wv = in_proj_weight.chunk(3, dim=0)
     bq, bk, bv = in_proj_bias.chunk(3, dim=0)
     B, Lq, _ = q.shape
     Lk = k.shape[1]
     dh = C // num_heads
-    qh = F.linear(q, wq, bq).reshape(B, Lq, num_heads, dh).transpose(1, 2)
-    kh = F.linear(k, wk, bk).reshape(B, Lk, num_heads, dh).transpose(1, 2)
-    vh = F.linear(v, wv, bv).reshape(B, Lk, num_heads, dh).transpose(1, 2)
+    qh = linear(q, wq, bq).reshape(B, Lq, num_heads, dh).transpose(1, 2)
+    kh = linear(k, wk, bk).reshape(B, Lk, num_heads, dh).transpose(1, 2)
+    vh = linear(v, wv, bv).reshape(B, Lk, num_heads, dh).transpose(1, 2)
     attn = torch.matmul(qh, kh.transpose(-1, -2)) / math.sqrt(dh)
     attn = torch.softmax(attn.float(), dim=-1).to(qh.dtype)
     out = torch.matmul(attn, vh).transpose(1, 2).reshape(B, Lq, C)
-    return F.linear(out, out_weight, out_bias)
+    return linear(out, out_weight, out_bias)
 
 
 def position_embedding_sine(not_mask, num_pos_feats: int,
@@ -90,32 +104,44 @@ def position_embedding_sine(not_mask, num_pos_feats: int,
 def dropout(x, rate: float, generator=None):
     """Inverted dropout drawing from ``generator`` (a ``torch.Generator`` on
     x's device): entries kept with probability 1 - rate and scaled by
-    1 / (1 - rate). Identity when the rate is 0 or no generator is given
-    (eval), as the JAX package's ``dropout`` is without a key."""
+    1 / (1 - rate). The mask is drawn in fp32 whatever x's type, so bf16 and
+    fp32 activations draw the same mask from the same generator state, as
+    ``jax.random.bernoulli`` does. Identity when the rate is 0 or no
+    generator is given (eval), as the JAX package's ``dropout`` is without a
+    key."""
     if generator is None or rate <= 0.0:
         return x
-    keep = torch.empty_like(x).bernoulli_(1.0 - rate, generator=generator)
-    return x * keep / (1.0 - rate)
+    keep = torch.empty(x.shape, dtype=torch.float32, device=x.device).bernoulli_(
+        1.0 - rate, generator=generator)
+    return x * keep.to(x.dtype) / (1.0 - rate)
 
 
 def drop_path(x, rate: float, generator=None):
     """Stochastic depth (timm's DropPath): each sample of the batch axis keeps
     its whole residual branch with probability 1 - rate, scaled by
     1 / (1 - rate), or loses it. Draws from ``generator`` (a
-    ``torch.Generator`` on x's device); identity when the rate is 0 or no
-    generator is given (eval), as the JAX package's ``drop_path`` is without
-    a key."""
+    ``torch.Generator`` on x's device), in fp32 whatever x's type (as
+    ``dropout``); identity when the rate is 0 or no generator is given
+    (eval), as the JAX package's ``drop_path`` is without a key."""
     if generator is None or rate <= 0.0:
         return x
     shape = (x.shape[0],) + (1,) * (x.ndim - 1)
-    keep = torch.empty(shape, dtype=x.dtype, device=x.device).bernoulli_(
+    keep = torch.empty(shape, dtype=torch.float32, device=x.device).bernoulli_(
         1.0 - rate, generator=generator)
-    return x * keep / (1.0 - rate)
+    return x * keep.to(x.dtype) / (1.0 - rate)
 
 
 # ---------------------------------------------------------------------------
 # parameter holders (state-dict names follow Detectron2 / torch.nn)
 # ---------------------------------------------------------------------------
+
+class Linear(nn.Linear):
+    """``nn.Linear`` whose forward is ``linear``: the promoted type of its
+    input and weight."""
+
+    def forward(self, x):
+        return linear(x, self.weight, self.bias)
+
 
 class LayerNorm(nn.LayerNorm):
     def forward(self, x):
@@ -152,7 +178,7 @@ class MLP(nn.Module):
                  num_layers: int):
         super().__init__()
         dims = [in_dim] + [hidden_dim] * (num_layers - 1) + [out_dim]
-        self.layers = nn.ModuleList(nn.Linear(dims[i], dims[i + 1])
+        self.layers = nn.ModuleList(Linear(dims[i], dims[i + 1])
                                     for i in range(num_layers))
 
     def forward(self, x):
@@ -172,7 +198,7 @@ class MultiheadAttention(nn.Module):
         self.num_heads = num_heads
         self.in_proj_weight = nn.Parameter(torch.empty(3 * dim, dim))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * dim))
-        self.out_proj = nn.Linear(dim, dim)
+        self.out_proj = Linear(dim, dim)
 
     def forward(self, q, k, v):
         return mha(q, k, v, self.in_proj_weight, self.in_proj_bias,

@@ -161,6 +161,7 @@ def test_dispatcher_counts_only_kernel_launches(cuda_device):
     torch.cuda.synchronize()
     assert da.LAUNCHES == {"encoder": 0, "decoder_box": 1, "decoder_inst": 0}
     assert da.BWD_LAUNCHES == {"encoder": 0, "decoder_box": 0, "decoder_inst": 0}
+    assert da.BWD_BF16_LAUNCHES == {"encoder": 0, "decoder_box": 0, "decoder_inst": 0}
 
 
 def test_wrapper_rejects_bad_input(cuda_device):
@@ -218,7 +219,7 @@ def test_backward_kernel_matches_plain_autograd(cuda_device, case):
     _assert_grads_close(got, want)
 
 
-def test_backward_takes_noncontiguous_grad_and_rejects_bf16(cuda_device):
+def test_backward_takes_noncontiguous_grad_and_rejects_float16(cuda_device):
     shapes = ((6, 8), (3, 4))
     value, loc, attw = _inputs(1, 10, 2, 32, 2, shapes, "uniform")
     v, lo, aw = (torch.from_numpy(a).to(cuda_device) for a in (value, loc, attw))
@@ -230,8 +231,9 @@ def test_backward_takes_noncontiguous_grad_and_rejects_bf16(cuda_device):
                      v, lo, aw, gout[None])
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=0, atol=1e-4)
-    with pytest.raises(TypeError, match="AMP"):
-        da.ms_deform_attn_bwd_cuda(v.bfloat16(), shapes, lo, aw,
+    # bf16 has its own kernel (msda_bwd_bf16, tested below); float16 has none
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        da.ms_deform_attn_bwd_cuda(v.half(), shapes, lo, aw,
                                    torch.zeros(1, 10, 64, device=cuda_device))
 
 
@@ -301,6 +303,73 @@ def test_backward_kernel_with_the_last_warp_cut_short(cuda_device, D):
     assert (B * Q * H * {16: 2, 48: 8, 64: 8}[D]) % 32
     loc = np.random.default_rng(D).uniform(-0.3, 1.3, (B, Q, H, 2, P, 2)).astype(np.float32)
     _bwd_check(cuda_device, B, Q, H, D, P, shapes, loc, seed=D + 1)
+
+
+# msda_bwd_bf16 (the mixed-precision step's backward) against its oracle:
+# autograd of the plain version on f64 copies of the same bf16 value,
+# locations, weights and output gradient. d(value): the kernel sums in fp32
+# and rounds once to bf16, so its error is within one bf16 step of the
+# largest entry (2^-8 of it) and no larger than the plain version's in bf16,
+# whose index backward sums in bf16 (or within half a step, 2^-9, where that
+# rounds once too). d(loc), d(weights) are fp32: against the plain version
+# on the same bf16 value (fp32 arithmetic, the corners it picks are the
+# kernel's), 1e-4 of the largest entry as for fp32; the f64 oracle picks
+# other corners where a location's product sits on a pixel boundary.
+def _bwd_bf16_check(device, B, Q, H, D, P, shapes, loc, seed, site=None):
+    rng = np.random.default_rng(seed)
+    L = len(shapes)
+    value = rng.standard_normal((B, sum(h * w for h, w in shapes), H, D)).astype(np.float32)
+    attw = rng.dirichlet(np.ones(L * P), (B, Q, H)).reshape(B, Q, H, L, P).astype(np.float32)
+    gout = rng.standard_normal((B, Q, H * D)).astype(np.float32)
+    v = torch.from_numpy(value).to(device).bfloat16()
+    lo, aw, go = (torch.from_numpy(a).to(device) for a in (loc, attw, gout))
+    if site is None:
+        got = da.ms_deform_attn_bwd_cuda(v, shapes, lo, aw, go)
+    else:
+        got = _grads_of(lambda *a: da.ms_deform_attn(a[0], shapes, a[1], a[2], site),
+                        v, lo, aw, go)
+    plain = _grads_of(lambda *a: da.ms_deform_attn_plain(a[0], shapes, a[1], a[2]),
+                      v, lo, aw, go)
+    oracle = _grads_of(lambda *a: da.ms_deform_attn_plain(a[0], shapes, a[1], a[2]),
+                       v.double(), lo.double(), aw.double(), go.double())
+    torch.cuda.synchronize()
+    assert got[0].dtype == torch.bfloat16 and got[0].shape == v.shape
+    assert got[1].dtype == got[2].dtype == torch.float32
+    scale = float(oracle[0].abs().max())
+    err = float((got[0].double() - oracle[0]).abs().max())
+    err_plain = float((plain[0].double() - oracle[0]).abs().max())
+    assert err <= 2.0 ** -8 * scale and err <= max(err_plain, 2.0 ** -9 * scale), \
+        (err, err_plain, scale)
+    for name, g, w in zip(("loc", "attw"), got[1:], plain[1:]):
+        tol = 1e-4 * max(float(w.abs().max()), 1.0)
+        torch.testing.assert_close(g, w, rtol=0, atol=tol, msg=name)
+    return got
+
+
+@pytest.mark.parametrize("D,P,L", BWD_GRID)
+def test_backward_bf16_matches_the_oracle_over_the_input_grid(cuda_device, D, P, L):
+    shapes = GRID_SHAPES[:L]
+    B, Q, H = 2, 37, 3
+    loc = np.random.default_rng(D * 100 + P * 10 + L + 2).uniform(
+        -0.3, 1.3, (B, Q, H, L, P, 2)).astype(np.float32)
+    _bwd_bf16_check(cuda_device, B, Q, H, D, P, shapes, loc, seed=D * 100 + P * 10 + L + 1)
+
+
+@pytest.mark.parametrize("case", sorted(BWD_CASES))
+def test_backward_bf16_through_autograd_counts_its_own_launches(cuda_device, case):
+    """A bf16 value through ``ms_deform_attn`` under autograd: the forward
+    kernel and msda_bwd_bf16, counted in BWD_BF16_LAUNCHES and not in
+    BWD_LAUNCHES (the fp32 kernel's)."""
+    B, Q, H, D, P, shapes, mode = BWD_CASES[case]
+    if mode == "far":
+        loc = np.random.default_rng(2).uniform(
+            -1.5, 2.5, (B, Q, H, len(shapes), P, 2)).astype(np.float32)
+    else:
+        loc = _inputs(B, Q, H, D, P, shapes, mode, seed=1)[1]
+    da.reset_launches()
+    _bwd_bf16_check(cuda_device, B, Q, H, D, P, shapes, loc, seed=5, site="encoder")
+    assert da.LAUNCHES["encoder"] == 1 and da.BWD_BF16_LAUNCHES["encoder"] == 1
+    assert sum(da.BWD_LAUNCHES.values()) == 0
 
 
 # Block-size launchers (the kernel tools): every block size and value type at

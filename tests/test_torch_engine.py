@@ -293,9 +293,35 @@ def test_corrupted_checkpoint_raises(tmp_path):
         t.load_checkpoint(str(tmp_path / "nomodel.pth"), params_only=True)
 
 
-def test_amp_raises_not_implemented(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 6"):
-        Trainer(tiny_cfg(tmp_path, extra=("SOLVER.AMP.ENABLED", "True")), device="cpu")
+def test_trainer_amp_trains_saves_and_resumes(mini_dataset, tmp_path):
+    """SOLVER.AMP.ENABLED True: the Trainer runs the mixed-precision step
+    (``train_cfg.amp`` reaches ``make_train_step``), 2 iterations with
+    finite losses; its checkpoint holds fp32 parameters and AdamW moments;
+    a new Trainer resumed from it restores them exactly and takes a third
+    AMP step."""
+    cfg = tiny_cfg(tmp_path / "amp", extra=("SOLVER.AMP.ENABLED", "True"))
+    trainer = Trainer(cfg, datasets_root=str(mini_dataset), device="cpu")
+    assert trainer.train_cfg.amp
+    trainer.train(max_iter=2, log_every=1)
+    rows = [json.loads(line) for line in open(tmp_path / "amp" / "metrics.jsonl")]
+    assert [r["iteration"] for r in rows] == [1, 2]
+    assert all(np.isfinite(r[k]) for r in rows for k in ("total_loss", "loss_mask", "loss_dice"))
+    ckpt = torch.load(str(tmp_path / "amp" / "ckpt_0000002.pth"), weights_only=True)
+    assert all(v.dtype == torch.float32 for v in ckpt["model"].values()
+               if v.is_floating_point())
+    moments = [s for st in ckpt["optimizer"]["state"].values() for k, s in st.items()
+               if k in ("exp_avg", "exp_avg_sq")]
+    assert moments and all(m.dtype == torch.float32 for m in moments)
+    resumed = Trainer(cfg, datasets_root=str(mini_dataset), device="cpu")
+    resumed.load_checkpoint(str(tmp_path / "amp" / "ckpt_0000002.pth"))
+    assert resumed.iteration == 2 and resumed.optimizer.step_count == 2
+    for k, v in trainer.model.state_dict().items():
+        torch.testing.assert_close(resumed.model.state_dict()[k], v, rtol=0, atol=0)
+    resumed.train(max_iter=3, log_every=1)
+    assert resumed.iteration == 3
+    assert all(p.dtype == torch.float32 for p in resumed.model.parameters())
+    row = [json.loads(line) for line in open(tmp_path / "amp" / "metrics.jsonl")][-1]
+    assert row["iteration"] == 3 and np.isfinite(row["total_loss"])
 
 
 def test_trainer_end_to_end(mini_dataset, tmp_path, monkeypatch):
@@ -310,7 +336,7 @@ def test_trainer_end_to_end(mini_dataset, tmp_path, monkeypatch):
                 "loss_cls", "loss_mask", "loss_dice"):
         assert all(np.isfinite(r[key]) for r in rows), key
     assert rows[0]["msda_launches"] == {d: {"encoder": 0, "decoder_box": 0, "decoder_inst": 0}
-                                        for d in ("fwd", "bwd")}
+                                        for d in ("fwd", "bwd", "bwd_bf16")}
     ckpts = sorted(glob.glob(str(tmp_path / "out" / "ckpt_*.pth")))
     assert [os.path.basename(p) for p in ckpts] == ["ckpt_0000002.pth"]
 

@@ -4,7 +4,8 @@ The deformable-attention kernels read and write 8 channels a thread with
 16-byte vector loads and atomics, and ``tc_kdepth`` reads its operands with
 vector loads, so their wrappers raise on D % 8 != 0 and on tensors that are
 not 16-byte aligned (a contiguous view at an offset may not be), the
-backward's output gradient included. Those rules depend only on shapes,
+backward's output gradient included, for either value type (the bf16
+backward is the mixed-precision step's). Those rules depend only on shapes,
 types and data pointers and are checked before the device, so they hold here
 on CPU tensors; tensors that pass them fail on the device check instead (no
 fallback to the plain version).
@@ -105,6 +106,45 @@ def test_backward_rejects_a_misaligned_value_view():
     gout = torch.zeros(1, 5, 2 * 32)
     with pytest.raises(ValueError, match="value must be 16-byte aligned"):
         da.ms_deform_attn_bwd_cuda(_shifted(value, 1), SHAPES, loc, attw, gout)
+
+
+@pytest.mark.parametrize("D", [12, 20, 72])
+def test_backward_bf16_applies_the_same_rules(D):
+    """The bf16 backward (msda_bwd_bf16, the AMP step's) reads 8 bf16 channels
+    as one 16-byte vector: the same D rule."""
+    value, loc, attw = _inputs(D=D, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="D % 8"):
+        da.ms_deform_attn_bwd_cuda(value, SHAPES, loc, attw, torch.zeros(1, 5, 2 * D))
+
+
+@pytest.mark.parametrize("elems", [1, 2, 4])
+def test_backward_bf16_rejects_a_misaligned_value_view(elems):
+    """A bf16 view 1, 2 or 4 elements (2, 4 or 8 bytes) into its allocation
+    is not 16-byte aligned."""
+    value, loc, attw = _inputs(dtype=torch.bfloat16)
+    view = _shifted(value, elems)
+    assert view.is_contiguous() and view.data_ptr() % 16
+    with pytest.raises(ValueError, match="value must be 16-byte aligned"):
+        da.ms_deform_attn_bwd_cuda(view, SHAPES, loc, attw, torch.zeros(1, 5, 2 * 32))
+
+
+def test_backward_bf16_aligned_value_reaches_the_device_check():
+    """bf16 at D = 16 and 48, and a bf16 view 8 elements (16 bytes) in: the
+    rules pass, and the CPU tensors fail on the device check (no fallback)."""
+    for D, elems in ((16, 0), (48, 0), (32, 8)):
+        value, loc, attw = _inputs(D=D, dtype=torch.bfloat16)
+        value = _shifted(value, elems) if elems else value
+        with pytest.raises(ValueError, match="must be on"):
+            da.ms_deform_attn_bwd_cuda(value, SHAPES, loc, attw, torch.zeros(1, 5, 2 * D))
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float64])
+def test_backward_rejects_a_value_type_it_has_no_kernel_for(dtype):
+    """Only float32 (msda_bwd_f32) and bfloat16 (msda_bwd_bf16) values have
+    a backward kernel; the type is checked before anything else."""
+    value, loc, attw = _inputs(dtype=dtype)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        da.ms_deform_attn_bwd_cuda(value, SHAPES, loc, attw, torch.zeros(1, 5, 2 * 32))
 
 
 def test_bwd_split_finds_the_backward_scatter_in_the_source():
