@@ -76,6 +76,20 @@ Phases (each exits non-zero on failure; none is caught and continued):
      version at the training shapes, each timed (eager, graph replay) beside
      the plain version, the grid_sample form and the bound, and the bf16
      kernels at the AMP step's shapes as in 6a;
+  6d. data parallelism (``tools/ddp_step.py``, ranks as subprocesses under
+     torch.distributed.run, each with a timeout): the R50 step at full width
+     (2 clips of 4 x 512x800, one a rank) on two ranks sharing the one card
+     over gloo, fp32 and AMP, against the one-process step (first-step
+     losses, the parameters after it, the ranks bit-equal after 3 steps,
+     6 / 6 / 24 launches a step in each rank, gradient bytes and all-reduce
+     seconds); the same step in a one-rank NCCL group; NCCL across
+     min(4, count) cards where there are several; NCCL asked for with two
+     ranks on one card, which must raise the port's error; train_net over 2
+     ranks (3 iterations, one checkpoint, the test split and gathered, rank
+     0 alone writing) against a one-process --eval-only of its checkpoint;
+     inference_vis with the window encode sharded by frames over two devices
+     against the unsharded run; the kernels at one rank's call shapes and at
+     the sharded encoder's, against their plain versions and timed;
   7. the kernel tools' sweeps (block sizes, gather probe, tensor-core depth),
      each problem with the launch counts set to 0 before it and read after
      it;
@@ -94,6 +108,7 @@ import dataclasses
 import json
 import os
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -526,17 +541,19 @@ def write_ovis_dataset(root, hw, train_frames, dev_frames, num_classes, seed):
     """A synthetic OVIS-layout dataset under ``root``: ``ovis/train/v<i>/*.ppm``,
     ``ovis/annotations_train.json`` (a video per entry of ``train_frames``,
     that many frames each) and ``ovis/valid_sub.json`` (one video of
-    ``dev_frames`` frames), the splits ytvis_ovis_train and ytvis_ovis_dev
-    name. Each video holds 3-6 ellipses that move from frame to frame over a
-    noisy background, with the RLE GT of tests/synth_dataset.py's schema
-    (per-frame segmentations, xywh boxes, areas)."""
+    ``dev_frames`` frames, or one per entry of a tuple), the splits
+    ytvis_ovis_train and ytvis_ovis_dev name. Each video holds 3-6 ellipses
+    that move from frame to frame over a noisy background, with the RLE GT
+    of tests/synth_dataset.py's schema (per-frame segmentations, xywh boxes,
+    areas)."""
     from mdqe_cvpr2023_tpu_torch.data import rle
     rng = np.random.default_rng(seed)
     H, W = hw
     yy, xx = np.mgrid[0:H, 0:W]
     splits = {"annotations_train.json": [], "valid_sub.json": []}
-    for vid, T in enumerate(list(train_frames) + [dev_frames], start=1):
-        split = "valid_sub.json" if vid == len(train_frames) + 1 else "annotations_train.json"
+    dev = [dev_frames] if isinstance(dev_frames, int) else list(dev_frames)
+    for vid, T in enumerate(list(train_frames) + dev, start=1):
+        split = "valid_sub.json" if vid > len(train_frames) else "annotations_train.json"
         os.makedirs(os.path.join(root, "ovis", "train", f"v{vid}"), exist_ok=True)
         objs = [dict(r=rng.uniform(0.06, 0.2, 2) * (H, W), c=rng.uniform(0.2, 0.8, 2) * (H, W),
                      v=rng.uniform(-0.01, 0.01, 2) * (H, W), col=rng.integers(60, 255, 3),
@@ -1640,8 +1657,9 @@ def swin_fwd_sites(da, path, seen, card):
     return errs, timings
 
 
-def swin_bwd_sites(da, seen, card):
-    """The backward kernel at every call shape of the Swin-L training step,
+def swin_bwd_sites(da, seen, card, path="swinl_train"):
+    """The backward kernel at every call shape of a training step (the
+    Swin-L one unless ``path`` names another),
     against autograd of the plain version (1e-4 of each gradient's largest
     entry, at least 1e-4, as at the R50 shapes), timed (eager with its zeroed
     d(value), and graph replay) beside the plain backward, the grid_sample
@@ -1665,7 +1683,7 @@ def swin_bwd_sites(da, seen, card):
                 worst = max(worst, err)
                 if not (err <= tol and bool(torch.isfinite(g).all())):
                     fail(f"backward kernel disagrees with autograd of the plain version at "
-                         f"the Swin-L training {site} {key}: d{name} {err:.2e} (tol {tol:.1e})")
+                         f"{path} {site} {key}: d{name} {err:.2e} (tol {tol:.1e})")
             errs[site] = max(errs.get(site, 0.0), worst)
             del got, want
             t = dict(ms=measure.time_ms(
@@ -1683,7 +1701,7 @@ def swin_bwd_sites(da, seen, card):
             del out, leaves
             t["bound_ms"], t["bound_by"], nbytes, _ = measure.msda_bwd_bound(v, shapes, lo, aw)
             rows.append((count, t))
-            print(f"swinl_train bwd {site:12s} B={B} Q={Q} L={len(shapes)} "
+            print(f"{path} bwd {site:12s} B={B} Q={Q} L={len(shapes)} "
                   f"{shapes[0][0]}x{shapes[0][1]}..: {count} launches | max|err| {worst:.2e} | "
                   f"kernel {t['ms']:.4f} ms (graph replay {t['device_ms']:.4f} ms) | plain "
                   f"backward {t['plain_ms']:.3f} ms | grid_sample form backward "
@@ -2004,6 +2022,513 @@ def swin_paths(da, card):
     return entries
 
 
+# ---------------------------------------------------------------------------
+# 6d. data parallelism: ranks as subprocesses, the frame-sharded encode
+# ---------------------------------------------------------------------------
+
+RANK_TIMEOUT_S = 300
+
+
+def start_ranks(args, n):
+    """Start ``python -m torch.distributed.run --nproc_per_node n args`` from
+    the checkout on 127.0.0.1 (a free port); ``run_ranks`` waits for it."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", str(n),
+           "--master_addr", "127.0.0.1", "--master_port", str(port), *args]
+    print("$ " + " ".join(cmd), flush=True)
+    return subprocess.Popen(cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def run_ranks(args, n, expect_fail=False, proc=None):
+    """Wait for ``proc`` (or start the ranks first), killed at
+    RANK_TIMEOUT_S; a non-zero exit or a timeout fails the run (unless
+    ``expect_fail``: then a zero exit does). Returns the output."""
+    t0 = time.perf_counter()
+    proc = proc or start_ranks(args, n)
+    try:
+        out = proc.communicate(timeout=RANK_TIMEOUT_S)[0]
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        print(proc.communicate()[0][-6000:], flush=True)
+        fail(f"{n} ranks timed out after {RANK_TIMEOUT_S} s")
+    if (proc.returncode != 0) != expect_fail:
+        print(out[-6000:], flush=True)
+        fail(f"{n} ranks exited with {proc.returncode}")
+    print(f"{n} ranks: waited {time.perf_counter() - t0:.1f} s for them", flush=True)
+    return out
+
+
+def _update_quantiles(state, ref_state, trainable, lr):
+    """|state - ref_state| / lr over the trainable entries: q90, q99, q99.9,
+    max; and the frozen entries' largest difference."""
+    diffs = np.concatenate([(state[k].double() - ref_state[k].double()).abs().flatten()
+                            .numpy() for k in state if k in trainable]) / lr
+    frozen = max(float((state[k].double() - ref_state[k].double()).abs().max())
+                 for k in state if k not in trainable)
+    return (*np.quantile(diffs, [0.9, 0.99, 0.999]), float(diffs.max())), frozen
+
+
+def _step_checks(name, reports, ref, ref_state, world, amp_noise=None):
+    """Each rank's report of a case against the one-process step on the same
+    global batch, from the same weights. fp32 (``amp_noise`` None): the first
+    step's all-reduced total and every loss rtol 1e-4, rank 0's parameters
+    after it within the update bounds of tiny_train_card_vs_cpu (99% within
+    0.01 lr, 99.9% within 0.05 lr, all within lr). AMP: a rank's bf16
+    products over one clip round otherwise than the one process's over two
+    (other cuDNN and cuBLAS algorithms at another batch), and a rounding can
+    flip an argmax (the query selection), so the first step is held as the
+    tiny AMP step is (the total within 1e-2, the loss vector within 5e-2 of
+    its norm), and the parameters after it to ``amp_noise``, the distance
+    between the one-process AMP and fp32 steps (q90 and q99 no larger, all
+    within 2.1 lr). Both: frozen leaves equal; the ranks bit-equal after the
+    last step; 6 / 6 / 24 launches a step of the forward and of the case's
+    backward kernel (msda_bwd_bf16 under AMP), none of the other. Returns
+    rank 0's launches over its steps."""
+    from mdqe_cvpr2023_tpu_torch.parallel import train as ptrain
+    want_s = ref["steps"][0]
+    keys = sorted(want_s["losses"])
+    b = np.array([want_s["losses"][k] for k in keys])
+    worst, worst_key, vec, tot = 0.0, None, 0.0, 0.0
+    for r in reports:
+        s0 = r["steps"][0]
+        a = np.array([s0["losses"][k] for k in keys])
+        rel = np.abs(a - b) / np.maximum(np.abs(b), 1e-12)
+        if rel.max() > worst:
+            worst, worst_key = float(rel.max()), keys[int(rel.argmax())]
+        vec = max(vec, float(np.linalg.norm(a - b) / np.linalg.norm(b)))
+        tot = max(tot, abs(s0["total"] - want_s["total"]) / abs(want_s["total"]))
+    state = torch.load(reports[0]["step1_path"], map_location="cpu", weights_only=True)
+    (q90, q99, q999, dmax), frozen = _update_quantiles(state, ref_state, ref["trainable"],
+                                                       ptrain.TrainCfg().base_lr)
+    amp = amp_noise is not None
+    bwd_kind, other = ("bwd_bf16", "bwd") if amp else ("bwd", "bwd_bf16")
+    per_step = expected_train_launches(ptrain.TRAIN_CFG)
+    launches = {d: {s_: sum(st["launches"][d][s_] for st in reports[0]["steps"])
+                    for s_ in per_step} for d in ("fwd", "bwd", "bwd_bf16")}
+    for r in reports:
+        for st in r["steps"]:
+            if (st["launches"]["fwd"] != per_step or st["launches"][bwd_kind] != per_step
+                    or any(st["launches"][other].values())):
+                fail(f"{name}: rank {r['rank']} launches {st['launches']}, want {per_step}")
+    same = len({r["sha256_final"] for r in reports}) == 1
+    print(f"{name}: {world} ranks of {reports[0]['clips']} clip(s) against one process on "
+          f"{ref['clips']}: first step total rel err {tot:.2e}, loss vector rel distance "
+          f"{vec:.2e}, worst loss rel err {worst:.2e} ({worst_key}) (tol "
+          f"{'1e-2 / 5e-2' if amp else '1e-4 each'}); after it |dparam|/lr q90 {q90:.2e} "
+          f"q99 {q99:.2e} q99.9 {q999:.2e} max {dmax:.3f}"
+          + (f" (one-process AMP against fp32: q90 {amp_noise[0]:.2e} q99 "
+             f"{amp_noise[1]:.2e} max {amp_noise[3]:.3f})" if amp else "")
+          + f", frozen max diff {frozen:.1e}; ranks bit-equal after "
+          f"{len(reports[0]['steps'])} steps: {same} "
+          f"({', '.join(r['sha256_final'][:12] for r in reports)})", flush=True)
+    for r in reports:
+        print(f"  rank {r['rank']} ({r['backend']}, {r['device']}): s/step "
+              f"{[round(st['s'], 4) for st in r['steps']]}, gradient all-reduce "
+              f"{r['steps'][0]['allreduce_bytes'] / 2 ** 20:.1f} MiB a step in "
+              f"{[round(st['allreduce_s'], 4) for st in r['steps']]} s, peak "
+              f"{r.get('peak_mem_gib', float('nan')):.2f} GiB, totals "
+              f"{[round(st['total'], 5) for st in r['steps']]}", flush=True)
+    if amp:
+        bad = (tot > 1e-2 or vec > 5e-2 or q90 > amp_noise[0] or q99 > amp_noise[1]
+               or dmax > 2.1)
+    else:
+        bad = worst > 1e-4 or q99 > 0.01 or q999 > 0.05 or dmax > 1.0
+    if bad or frozen != 0 or not same:
+        fail(f"{name}: the data-parallel step disagrees with the one-process step")
+    return launches
+
+
+def batch_size_witness(device, cfg, crit, batch, pri):
+    """Whether the batch's size alone moves the step's losses, with no
+    process group: for each clip k of ``batch`` and in fp32 and AMP, the
+    loss (dropout 0, no gradient) of clip k alone against that of clip k
+    twice. Twice the clip doubles every sum and every count of the
+    criterion and leaves its means, so the two are one loss computed at
+    batch 1 and at batch 2, as a rank of two and the one process compute
+    theirs. Returns {(k, amp): (total rel err, loss vector rel distance,
+    worst loss rel err, its key)}."""
+    from mdqe_cvpr2023_tpu_torch.models.detr import MDQEModel
+    from mdqe_cvpr2023_tpu_torch.parallel import train as ptrain
+    model = MDQEModel(cfg, device=device, seed=0)
+    B = batch["valid"].shape[0]
+    full = {**batch, "reid_priorities": pri}
+    out = {}
+    with torch.no_grad():
+        for k in range(B):
+            one = ptrain.shard_rows(full, k, B)
+            two = {key: np.concatenate([v, v]) for key, v in one.items()}
+            for amp in (False, True):
+                losses = []
+                for rows in (one, two):
+                    rows = ptrain.to_device(rows, torch.device(device))
+                    p_ = rows.pop("reid_priorities")
+                    total, ldict = ptrain.loss_fn(model, crit, rows, None, 0.0, p_, amp=amp)
+                    losses.append((float(total), {n: float(v) for n, v in ldict.items()}))
+                (t1, l1), (t2, l2) = losses
+                keys = sorted(l1)
+                a, b = np.array([l2[n] for n in keys]), np.array([l1[n] for n in keys])
+                rel = np.abs(a - b) / np.maximum(np.abs(b), 1e-12)
+                out[k, amp] = (abs(t2 - t1) / abs(t1),
+                               float(np.linalg.norm(a - b) / np.linalg.norm(b)),
+                               float(rel.max()), keys[int(rel.argmax())])
+    del model
+    return out
+
+
+def ddp_reference(spec, case, trainable, group=None):
+    """The case in this process (no group: the one-process step on the whole
+    global batch), with the names of the trainable parameters."""
+    from mdqe_cvpr2023_tpu_torch.tools import ddp_step
+    report, state = ddp_step.run_case(spec, case, "cuda:0", group)
+    report["trainable"] = trainable
+    torch.cuda.empty_cache()
+    return report, state
+
+
+def ddp_spec(world, tmp):
+    """The data-parallel step's cases at full width: ``TRAIN_CFG``, seed-0
+    weights, dropout 0, a synthetic global batch of ``world`` clips (one a
+    rank) and one draw of its reid priorities, written under ``tmp``; fp32
+    and AMP, 3 steps."""
+    from mdqe_cvpr2023_tpu_torch.parallel import train as ptrain
+    batch = ptrain.synthetic_batch(seed=0, clips=world)
+    B, N = batch["valid"].shape
+    crit = ptrain.TRAIN_CRIT
+    g = torch.Generator().manual_seed(0)
+    pri = torch.rand((B, N, 2, crit.n_frames * crit.n_query), generator=g).numpy()
+    np.savez(os.path.join(tmp, "batch.npz"), **batch)
+    np.save(os.path.join(tmp, "pri.npy"), pri)
+    return {"model": dataclasses.asdict(ptrain.TRAIN_CFG),
+            "crit": dataclasses.asdict(crit), "train": {}, "state": None,
+            "cases": [{"name": name, "batch": os.path.join(tmp, "batch.npz"),
+                       "priorities": os.path.join(tmp, "pri.npy"),
+                       "amp": name == "ddp_amp", "steps": 3}
+                      for name in ("ddp", "ddp_amp")]}
+
+
+def ddp_references(spec):
+    """The one-process first steps of ``spec``'s cases on cuda:0, the
+    trainable parameters' names, and the distance between the AMP and fp32
+    steps (``_step_checks``' AMP bound)."""
+    from mdqe_cvpr2023_tpu_torch.models.detr import MDQEModel
+    from mdqe_cvpr2023_tpu_torch.parallel import train as ptrain
+    model = MDQEModel(ptrain.TRAIN_CFG, device="cpu")
+    model.set_trainable(ptrain.TrainCfg().freeze_at)
+    trainable = {n for n, p in model.named_parameters() if p.requires_grad}
+    del model
+    refs = {c["name"]: ddp_reference(spec, dict(c, steps=1), trainable)
+            for c in spec["cases"]}
+    amp_noise = _update_quantiles(refs["ddp_amp"][1], refs["ddp"][1], trainable,
+                                  ptrain.TrainCfg().base_lr)[0]
+    return refs, trainable, amp_noise
+
+
+def ddp_ranks(tag, spec, refs, amp_noise, tmp, n, args):
+    """``tools/ddp_step.py`` over ``n`` ranks (with ``args``) on ``spec``,
+    each case checked against ``refs`` (``_step_checks``). Returns rank 0's
+    launches per case."""
+    path, out = os.path.join(tmp, f"spec_{tag}.json"), os.path.join(tmp, tag)
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    run_ranks(["-m", "mdqe_cvpr2023_tpu_torch.tools.ddp_step", "--spec", path, "--out", out,
+               *args], n)
+    launches = {}
+    for c in spec["cases"]:
+        reps = [json.load(open(os.path.join(out, f"{c['name']}_rank{r}.json")))
+                for r in range(n)]
+        reps[0]["step1_path"] = os.path.join(out, f"{c['name']}_step1.pt")
+        if [g[0] for g in reps[0]["gathered"]] != list(range(n)):
+            fail(f"all_gather_objects gave {reps[0]['gathered']}")
+        launches[c["name"]] = _step_checks(f"{c['name']} {tag}", reps, *refs[c["name"]], n,
+                                           amp_noise if c["amp"] else None)
+    return launches
+
+
+def ddp_paths(card):
+    """The data-parallel step (``tools/ddp_step.py``) at full width
+    (``ddp_spec``), fp32 and AMP: two ranks on the one card over gloo
+    against the one-process 2-clip step; the same step in a one-rank NCCL
+    group against the step without a group; and NCCL asked for with two
+    ranks on one card, which must fail with the port's own error. Returns
+    rank 0's launches of the gloo run, per case."""
+    import torch.distributed as tdist
+    tmp = tempfile.mkdtemp(prefix="mdqe_ddp_")
+    bad_ranks = None
+    try:
+        spec = ddp_spec(2, tmp)
+        with open(os.path.join(tmp, "spec.json"), "w") as f:
+            json.dump(spec, f)
+        # NCCL asked for with two ranks on one card: they fail at the start, so
+        # they run beside this process's reference steps
+        nccl_args = ["-m", "mdqe_cvpr2023_tpu_torch.tools.ddp_step", "--spec",
+                     os.path.join(tmp, "spec.json"), "--out", os.path.join(tmp, "x"),
+                     "--device", "cuda:0", "--dist-backend", "nccl"]
+        bad_ranks = start_ranks(nccl_args, 2)
+        refs, trainable, amp_noise = ddp_references(spec)
+        # the witness to the AMP bound of _step_checks: the batch's size alone,
+        # with no collective, moves the AMP losses and not the fp32 ones
+        from mdqe_cvpr2023_tpu_torch.parallel import train as ptrain
+        from mdqe_cvpr2023_tpu_torch.tools import ddp_step
+        witness = batch_size_witness("cuda:0", ptrain.TRAIN_CFG, ptrain.TRAIN_CRIT,
+                                     *ddp_step.case_inputs(spec["cases"][0]))
+        torch.cuda.empty_cache()
+        for (k, amp), (tot, vec, worst, key) in sorted(witness.items()):
+            print(f"batch-size witness, no process group, {'AMP' if amp else 'fp32'}: clip {k} "
+                  f"alone against clip {k} twice: total rel err {tot:.2e}, loss vector rel "
+                  f"distance {vec:.2e}, worst loss rel err {worst:.2e} ({key})", flush=True)
+
+        # one rank in an NCCL group, in this process: the same step
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        tdist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", rank=0,
+                                 world_size=1, device_id=torch.device("cuda", 0))
+        try:
+            for c in spec["cases"]:
+                rep, state = ddp_reference(spec, dict(c, steps=1), trainable,
+                                           tdist.group.WORLD)
+                path = os.path.join(tmp, f"{c['name']}_nccl1_step1.pt")
+                torch.save(state, path)
+                rep["step1_path"] = path
+                equal = rep["steps"][0]["losses"] == refs[c["name"]][0]["steps"][0]["losses"]
+                print(f"one-rank NCCL group ({rep['backend']}): first-step losses bit-equal to "
+                      f"the step without a group: {equal}", flush=True)
+                _step_checks(f"{c['name']} nccl world 1", [rep], *refs[c["name"]], 1,
+                             amp_noise if c["amp"] else None)
+        finally:
+            tdist.destroy_process_group()
+
+        text = run_ranks(nccl_args, 2, expect_fail=True, proc=bad_ranks)
+        if "one rank per card" not in text:
+            fail(f"nccl with two ranks on one card did not raise the port's error:\n"
+                 f"{text[-3000:]}")
+        print("nccl with two ranks on one card raised the port's error (one rank per card)",
+              flush=True)
+
+        launches = ddp_ranks("gloo", spec, refs, amp_noise, tmp, 2,
+                             ["--device", "cuda:0", "--dist-backend", "gloo"])
+        print("(two ranks share one card over gloo: their times measure gloo's host "
+              "staging of the gradients, not NCCL)", flush=True)
+        return launches
+    finally:
+        if bad_ranks is not None and bad_ranks.poll() is None:
+            bad_ranks.kill()
+            bad_ranks.communicate()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def nccl_across_cards():
+    """The step of ``ddp_paths`` over NCCL, one rank a card on min(4,
+    count) cards (``cuda:<LOCAL_RANK>``), against the one-process step on
+    the same global batch of one clip a card; not run on one card."""
+    n = min(4, torch.cuda.device_count())
+    if n < 2:
+        print(f"NCCL across cards: not run: {torch.cuda.device_count()} card", flush=True)
+        return
+    tmp = tempfile.mkdtemp(prefix="mdqe_nccl_")
+    try:
+        spec = ddp_spec(n, tmp)
+        refs, _, amp_noise = ddp_references(spec)
+        ddp_ranks(f"nccl_x{n}", spec, refs, amp_noise, tmp, n, [])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _decode_masks(pred):
+    from mdqe_cvpr2023_tpu_torch.data import rle
+    return np.stack([rle.decode(s) for s in pred["segmentations"]]).astype(bool)
+
+
+def trainer_ddp(card):
+    """``python -m torch.distributed.run --nproc_per_node 2 -m
+    mdqe_cvpr2023_tpu_torch.train_net --device cuda:0 --dist-backend gloo``
+    at full width with the cuts of TRAINER_CUTS (global batch 2: one clip a
+    rank), LR 1e-8 and class threshold 0: 3 iterations, one checkpoint (the
+    ranks' checksums compared at it), test on 3 dev videos split between the
+    ranks and gathered, rank 0 alone writing; then ``--eval-only`` of that
+    checkpoint in one process,
+    whose predictions and AP the gathered test must equal (the same tracks
+    and labels, scores within 5e-3, mask IoU >= 0.99). Returns rank 0's
+    launches: training forward, backward, test forward."""
+    tmp = tempfile.mkdtemp(prefix="mdqe_trainer_ddp_")
+    try:
+        write_ovis_dataset(tmp, (360, 640), train_frames=(24, 30), dev_frames=(12, 12, 12),
+                           num_classes=25, seed=5)
+        out, single = os.path.join(tmp, "out"), os.path.join(tmp, "single")
+        # the random weights' masks go blank within a few steps at the
+        # config's learning rate, and a blank track is no prediction: at LR
+        # 1e-8 the three steps leave the weights near their seed, whose tracks
+        # (threshold 0) give the two tests predictions to compare
+        opts = [x for k, v, _ in TRAINER_CUTS for x in (k, v)] + [
+            "SOLVER.BASE_LR", "1e-8", "MODEL.MDQE.APPLY_CLS_THRES", "0.0"]
+        common = ["--config-file", "configs/R50_ovis_360.yaml", "--datasets-root", tmp,
+                  "--log-every", "1"]
+        text = run_ranks(["-m", "mdqe_cvpr2023_tpu_torch.train_net", *common, "--max-iter",
+                          "3", "--device", "cuda:0", "--dist-backend", "gloo", *opts,
+                          "OUTPUT_DIR", out], 2)
+        print("\n".join(l for l in text.splitlines() if l.startswith(("iter", "saved", "{"))),
+              flush=True)
+        rows = [json.loads(l) for l in open(os.path.join(out, "metrics.jsonl"))]
+        train = [r for r in rows if "total_loss" in r]
+        ckpts = sorted(f for f in os.listdir(out) if f.startswith("ckpt_"))
+        marks = [r for r in rows if "checkpoint" in r]
+        tests = [r for r in rows if "test" in r]
+        results = [f for f in os.listdir(out) if f.startswith("results_")]
+        if (ckpts != ["ckpt_0000003.pth"] or [r["iteration"] for r in marks] != [3]
+                or len(tests) != 1 or results != ["results_ytvis_ovis_dev.json"]
+                or [r["iteration"] for r in train] != [1, 2, 3]):
+            fail(f"train_net over 2 ranks wrote {ckpts}, {results}, rows "
+                 f"{[(r['iteration'], sorted(r)[:3]) for r in rows]}")
+        t = tests[0]
+        if t["videos_per_rank"] != [[3, 5], [4]] or t["world_size"] != 2:
+            fail(f"the test's videos were not split: {t['videos_per_rank']}")
+        fwd = {s_: sum(r["msda_launches"]["fwd"][s_] for r in train)
+               for s_ in train[0]["msda_launches"]["fwd"]}
+        bwd = {s_: sum(r["msda_launches"]["bwd"][s_] for r in train) for s_ in fwd}
+        want = {k: 3 * v for k, v in expected_train_launches(trainer_model_cfg()).items()}
+        print(f"train_net over 2 ranks on one card ({card}): s/iter "
+              f"{[round(r['sec_per_iter'], 4) for r in train]}, all-reduce s "
+              f"{[round(r['allreduce_s'], 4) for r in train]}, losses "
+              f"{[round(r['total_loss'], 4) for r in train]}, rank 0 peak "
+              f"{max(r.get('max_mem_gib', float('nan')) for r in train):.2f} GiB; the "
+              f"replicas' checksum at "
+              f"the checkpoint {marks[0]['state_sha256'][:16]}; rank 0's launches in 3 steps "
+              f"{json.dumps(fwd)} / {json.dumps(bwd)}; test: videos per rank "
+              f"{t['videos_per_rank']}, {t['clips']} clips, {t['predictions']} predictions, "
+              f"{t['clips_per_s']:.3f} clips/s (both ranks on one card), AP {t['AP']:.4f}",
+              flush=True)
+        if fwd != want or bwd != want or min(t["msda_launches"]["fwd"].values()) == 0:
+            fail(f"train_net over 2 ranks launched {fwd} / {bwd} / {t['msda_launches']}, "
+                 f"want {want}")
+        run_train_net(common + ["--eval-only", "--resume", os.path.join(out, ckpts[0]),
+                                "--device", "cuda:0"] + opts + ["OUTPUT_DIR", single], single)
+        got = json.load(open(os.path.join(out, results[0])))
+        ref = json.load(open(os.path.join(single, results[0])))
+        one = [r for r in (json.loads(l) for l in open(os.path.join(single, "metrics.jsonl")))
+               if "test" in r][0]
+        same = got == ref
+        ok = len(got) == len(ref) and all(
+            (a["video_id"], a["category_id"]) == (b["video_id"], b["category_id"])
+            and abs(a["score"] - b["score"]) <= 5e-3 for a, b in zip(got, ref))
+        ious = [1.0]
+        if ok and not same:
+            for a, b in zip(got, ref):
+                ma, mb = _decode_masks(a), _decode_masks(b)
+                union = np.logical_or(ma, mb).sum()
+                ious.append(np.logical_and(ma, mb).sum() / union if union else 1.0)
+        print(f"gathered test against one process's --eval-only of the checkpoint: "
+              f"{len(got)} vs {len(ref)} predictions, identical {same}, min mask IoU "
+              f"{min(ious):.4f}, AP {t['AP']:.4f} vs {one['AP']:.4f}", flush=True)
+        if not got or not ok or min(ious) < 0.99 or (same and t["AP"] != one["AP"]) or (
+                abs(t["AP"] - one["AP"]) > 0.5):
+            fail("the two-rank test disagrees with the one-process test")
+        return fwd, bwd, t["msda_launches"]["fwd"]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def vis_sharded(da, card, cfg, inf, n_frames=36, H=360, W=640):
+    """``inference_vis`` with the window encode sharded by frames over
+    ``["cuda:0", "cuda:0"]`` (every card where there are several) against
+    ``devices=None``, on vis_full_width's video (36 frames of 360x640): the
+    same tracks and labels, scores within 5e-3, mask IoU >= 0.99; clips/s
+    of both. Returns the sharded run's launches and the encoder's call
+    shapes (each device's share)."""
+    from mdqe_cvpr2023_tpu_torch.models import meta
+    from mdqe_cvpr2023_tpu_torch.models.detr import MDQEModel
+    n = torch.cuda.device_count()
+    devices = [f"cuda:{i}" for i in range(n)] if n > 1 else ["cuda:0", "cuda:0"]
+    model = MDQEModel(cfg, device="cuda:0", seed=0)
+    video = np.random.default_rng(0).integers(0, 255, (n_frames, H, W, 3)).astype(np.uint8)
+    frames, _ = meta.preprocess_frames(video)
+    n_clips = (n_frames - inf.n_frames_test) // inf.clip_stride + 1
+    outs, rates, stages, first = {}, {}, {}, {}
+    for name, devs in (("unsharded", None), ("sharded", devices)):
+        first[name] = {}
+        meta.inference_vis(model, inf, frames, (H, W), (H, W), device="cuda:0",
+                           devices=devs, timers=first[name])
+        da.reset_launches()
+        with recorded_sites(da) as seen:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs[name] = meta.inference_vis(model, inf, frames, (H, W), (H, W),
+                                            device="cuda:0", devices=devs)
+            torch.cuda.synchronize()
+            rates[name] = n_clips / (time.perf_counter() - t0)
+        launches = dict(da.LAUNCHES)
+        stages[name] = {}
+        meta.inference_vis(model, inf, frames, (H, W), (H, W), device="cuda:0",
+                           devices=devs, timers=stages[name])
+        print(f"{name}: first call's encode_weights {first[name]['encode_weights']:.4f} s "
+              f"(the sharded run builds the other devices' copies there); a later call's "
+              f"stage host seconds (each ends in a synchronize) "
+              f"{json.dumps({k: round(v, 4) for k, v in stages[name].items() if not k.endswith('_n')})}",
+              flush=True)
+    got, want = outs["sharded"], outs["unsharded"]
+    check_outputs(got, n_frames, (H, W), cfg.num_classes)
+    ious = [np.logical_and(a, b).sum() / max(np.logical_or(a, b).sum(), 1)
+            for a, b in zip(got["pred_masks"], want["pred_masks"])]
+    score_err = float(np.max(np.abs(np.subtract(got["pred_scores"], want["pred_scores"])))) \
+        if len(got["pred_scores"]) == len(want["pred_scores"]) else float("inf")
+    print(f"frame-sharded inference_vis over {devices} ({card}): {rates['sharded']:.3f} "
+          f"clips/s against {rates['unsharded']:.3f} unsharded; tracks {got['num_tracks']} "
+          f"vs {want['num_tracks']}, max|score err| {score_err:.2e}, min mask IoU "
+          f"{min(ious) if ious else 1.0:.4f}; launches {json.dumps(launches)}; encoder call "
+          f"shapes {dict(seen['fwd'].get('encoder', {}))}", flush=True)
+    if (got["num_tracks"] != want["num_tracks"] or got["pred_labels"] != want["pred_labels"]
+            or score_err > 5e-3 or (ious and min(ious) < 0.99) or min(launches.values()) == 0):
+        fail("the frame-sharded inference_vis disagrees with the unsharded run")
+    del model
+    torch.cuda.empty_cache()
+    return launches, {"encoder": seen["fwd"]["encoder"]}
+
+
+def rank_sites(world):
+    """The training step's call shapes on one rank of ``world`` (each holds
+    1 / world of TRAIN_CFG's 2-clip batch): BWD_CHECKS' training rows with B
+    divided by ``world``."""
+    return {site: collections.Counter({(B // world, Q, H, D, P, shapes, "float32"): 1})
+            for site, B, Q, H, D, P, shapes, _ in BWD_CHECKS[:3]}
+
+
+def ddp_entries(da, card, ddp_launches, trainer_launches, vis, vis_timings, vis_err):
+    """Phase 6d's kernels-line entries: the kernels at one rank's call shapes
+    (fp32, and bf16 for the AMP step) and at the sharded encoder's, each
+    against its plain version and timed, with rank 0's launches."""
+    entries = []
+    seen = rank_sites(2)
+    f_err, f_t = swin_fwd_sites(da, "ddp", seen, card)
+    b_err, b_t = swin_bwd_sites(da, seen, card, path="ddp")
+    a_ferr, a_berr, a_ft, a_bt = bf16_sites(da, "ddp_amp", seen, card)
+    t_fwd, t_bwd, t_test = trainer_launches
+    for site in f_t:
+        for path, fwd_n, bwd_n in (("ddp", ddp_launches["ddp"]["fwd"],
+                                    ddp_launches["ddp"]["bwd"]),
+                                   ("trainer_ddp", t_fwd, t_bwd)):
+            entries.append(kernel_entry(f"ms_deform_attn_fwd[{site},{path}]", SOURCE,
+                                        f"{PALLAS}:121", fwd_n[site], f_err[site], f_t[site]))
+            entries.append(kernel_entry(f"ms_deform_attn_bwd[{site},{path}]", SOURCE,
+                                        BWD_REPLACES, bwd_n[site], b_err[site], b_t[site]))
+        entries.append(kernel_entry(f"ms_deform_attn_fwd[{site},ddp_amp]", SOURCE,
+                                    f"{PALLAS}:121", ddp_launches["ddp_amp"]["fwd"][site],
+                                    a_ferr[site], a_ft[site]))
+        entries.append(kernel_entry(f"ms_deform_attn_bwd_bf16[{site},ddp_amp]", SOURCE,
+                                    BWD_BF16_REPLACES, ddp_launches["ddp_amp"]["bwd_bf16"][site],
+                                    a_berr[site], a_bt[site]))
+    vis_launches, enc_seen = vis
+    e_err, e_t = swin_fwd_sites(da, "vis_sharded", enc_seen, card)
+    for site, t in vis_timings.items():
+        entries.append(kernel_entry(f"ms_deform_attn_fwd[{site},trainer_ddp_test]", SOURCE,
+                                    t["replaces"], t_test[site], vis_err[site], t))
+        t_, err = (e_t[site], e_err[site]) if site == "encoder" else (t, vis_err[site])
+        entries.append(kernel_entry(f"ms_deform_attn_fwd[{site},vis_sharded]", SOURCE,
+                                    t["replaces"], vis_launches[site], err, t_))
+    return entries
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a CUDA card")
@@ -2169,6 +2694,20 @@ def main():
     # ---- 6c. Swin-L -----------------------------------------------------------------
     swin_entries = swin_paths(da, card)
 
+    # ---- 6d. data parallelism and the frame-sharded encode -----------------------------
+    phase(f"main path: the data-parallel step, 2 ranks on one card over gloo; NCCL at "
+          f"world size 1 ({card})")
+    ddp_launches = ddp_paths(card)
+    phase(f"main path: the data-parallel step over NCCL across cards ({card})")
+    nccl_across_cards()
+    phase(f"main path: train_net over 2 ranks under torch.distributed.run ({card})")
+    trainer_ddp_launches = trainer_ddp(card)
+    phase(f"main path: inference_vis with the window encode sharded by frames ({card})")
+    vis = vis_sharded(da, card, cfg, inf)
+    phase(f"kernels at one rank's call shapes and the sharded encoder's ({card})")
+    ddp_kernel_entries = ddp_entries(da, card, ddp_launches, trainer_ddp_launches, vis,
+                                     timings, max_err)
+
     # ---- 7. the kernel tools ------------------------------------------------------
     phase(f"main path: the kernel tools' sweeps ({card})")
     tune_rows, probe_rows, tc_rows, tc_launches = tool_paths(da, tdk, pbp, pmk)
@@ -2214,6 +2753,7 @@ def main():
         kernels.append(kernel_entry(f"ms_deform_attn_fwd[{site},coco]", SOURCE,
                                     f"{PALLAS}:{line}", coco_launches[site], coco_err[site], t))
     kernels += swin_entries
+    kernels += ddp_kernel_entries
     for r in tune_rows:  # each level's own launches and error
         key = f"{r['value']}_t{r['threads']}"
         kernels.append(kernel_entry(f"ms_deform_attn_fwd[tune,{r['level']},{key}]", SOURCE,

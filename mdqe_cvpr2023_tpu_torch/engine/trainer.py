@@ -5,13 +5,24 @@ periodic checkpoints and dev-split evaluation, full-state checkpoints with
 ``torch.save`` and their restore, and VIS / COCO testing scored with the
 YTVIS video-mask AP.
 
-One process drives one device (the card unless ``device="cpu"``). The
-loader's worker threads pin each batch's host memory; the copy to the card is
-issued on the training step's own stream just before the step, so the step
-cannot read a batch before it lands. The dropout masks of iteration i come
-from a generator on the device, and the reid priorities from one on the host,
-both seeded from (17, i) (``iteration_seed``): a resumed run replays the same
-draws, and the card and the CPU draw the same priorities.
+One process drives one device (the card unless ``device="cpu"``); under a
+``torch.distributed`` group (``train_net`` started by
+``torch.distributed.run``) each of W processes does, with the weights
+broadcast from rank 0 at the start. The loader's worker threads pin each
+batch's host memory; the copy to the card is issued on the training step's
+own stream just before the step, so the step cannot read a batch before it
+lands. SOLVER.IMS_PER_BATCH is the global batch, as in the JAX package: every
+rank maps the whole ``batch_at(k)`` (so the bucket, the augmentation draws
+and the padded size are the global batch's) and keeps its clips
+(``shard_rows``). The reid priorities of iteration i are drawn on the host
+for the global batch from a generator seeded from (17, i)
+(``iteration_seed``) and cut to the rank's clips, and the dropout masks come
+from a generator on the device seeded from (17, i) on rank 0 and (17, i, r)
+on rank r: a resumed run replays the same draws, the card and the CPU draw
+the same priorities, and with dropout 0 W ranks step as one process on the
+global batch. Rank 0 alone writes checkpoints, ``metrics.jsonl`` and the
+results files; ``test`` splits the videos over the ranks and gathers the
+predictions.
 """
 from __future__ import annotations
 
@@ -32,17 +43,21 @@ from ..data.ytvis_eval import YTVISEvaluator
 from ..models.detr import MDQEModel
 from ..models.meta import inference_image, inference_vis, preprocess_frames
 from ..ops import deform_attn
-from ..parallel.train import make_optimizer, make_train_step
+from ..parallel.train import (broadcast_parameters, make_optimizer, make_train_step,
+                              shard_rows, state_sha256)
+from ..utils import dist
 from ..utils.misc import resolve_device
 from .build import (build_criterion_cfg, build_inference_cfg, build_model_cfg,
                     build_train_cfg)
 from .checkpoint import load_torch_checkpoint, merge_state_dict
 
 
-def iteration_seed(iteration: int) -> int:
+def iteration_seed(iteration: int, rank: int = 0) -> int:
     """The seed of iteration ``iteration``'s random draws, from (17,
-    iteration) (the JAX package folds ``iteration`` into ``PRNGKey(17)``)."""
-    return int(np.random.SeedSequence([17, iteration]).generate_state(1)[0])
+    iteration) (the JAX package folds ``iteration`` into ``PRNGKey(17)``),
+    and from (17, iteration, rank) for a rank other than 0."""
+    entropy = [17, iteration] + ([rank] if rank else [])
+    return int(np.random.SeedSequence(entropy).generate_state(1)[0])
 
 
 def _host_tensors(batch: Dict[str, np.ndarray], pin: bool) -> Dict[str, torch.Tensor]:
@@ -66,13 +81,6 @@ def _launches_since(before: Dict[str, Dict[str, int]]) -> Dict[str, Dict[str, in
     return {d: {site: n - before[d][site] for site, n in now[d].items()} for d in now}
 
 
-def _check_single_process(what: str) -> None:
-    if torch.distributed.is_available() and torch.distributed.is_initialized() \
-            and torch.distributed.get_world_size() > 1:
-        raise NotImplementedError(f"{what} over several processes is not ported "
-                                  "(ROADMAP queue 1, item 6)")
-
-
 def _dataset_paths(root: Optional[str], name: str):
     root = root or os.environ.get("MDQE_DATASETS_ROOT", "datasets")
     image_root, json_path = DATASET_SPLITS[name]
@@ -83,8 +91,9 @@ def build_train_loader(cfg, datasets_root: Optional[str] = None,
                        pin: bool = False) -> CombinedClipLoader:
     """The training loader of ``cfg``: one (records, mapper) source per
     DATASETS.TRAIN split, the resolution buckets, SOLVER.IMS_PER_BATCH clips a
-    batch (one card: no rescaling) and DATALOADER.NUM_WORKERS threads, which
-    turn each batch into tensors (pinned when ``pin``)."""
+    batch (the global batch: each rank keeps its clips of it) and
+    DATALOADER.NUM_WORKERS threads, which turn each batch into tensors
+    (pinned when ``pin``)."""
     n_frames = cfg.INPUT.SAMPLING_FRAME_NUM
     sources = []
     buckets = set()
@@ -144,13 +153,18 @@ class Trainer:
         self.output_dir = cfg.OUTPUT_DIR
         os.makedirs(self.output_dir, exist_ok=True)
 
+        # the process group the ranks train and test over (None: one process)
+        self.group = dist.default_group()
+        self.rank, self.world = dist.rank(), dist.world_size()
         self.model = self._init_or_load_params(cfg)
+        if self.group is not None:
+            broadcast_parameters(self.model, self.group)
         self.optimizer = make_optimizer(self.model, self.train_cfg)
         self.step_fn = make_train_step(
             self.crit_cfg, dropout_rate=float(cfg.MODEL.MDQE.DROPOUT),
             match_stride=cfg.MODEL.MDQE.MATCH_STRIDE,
             pixel_mean=tuple(cfg.MODEL.PIXEL_MEAN), pixel_std=tuple(cfg.MODEL.PIXEL_STD),
-            amp=self.train_cfg.amp)
+            amp=self.train_cfg.amp, group=self.group)
         self.iteration = 0
         # the last ``test``: clips, predictions, host seconds of predict_s,
         # rle_s (RLE encoding of the predicted masks) and evaluate_s, kernel
@@ -173,19 +187,20 @@ class Trainer:
                                   pin=self.device.type == "cuda")
 
     def _draws(self, iteration: int, batch: Dict[str, torch.Tensor]):
-        """Iteration ``iteration``'s dropout generator (on the device) and
-        reid priorities (drawn on the host, then copied)."""
-        seed = iteration_seed(iteration)
-        gen = torch.Generator(device=self.device).manual_seed(seed)
+        """Iteration ``iteration``'s dropout generator (on the device, this
+        rank's) and the reid priorities of the global ``batch`` (on the
+        host)."""
+        gen = torch.Generator(device=self.device).manual_seed(
+            iteration_seed(iteration, self.rank))
         B, N = batch["valid"].shape
         shape = (B, N, 2, self.crit_cfg.n_frames * self.crit_cfg.n_query)
-        pri = torch.rand(shape, generator=torch.Generator().manual_seed(seed))
-        return gen, pri.to(self.device)
+        pri = torch.rand(shape, generator=torch.Generator().manual_seed(
+            iteration_seed(iteration)))
+        return gen, pri
 
     # ------------------------------------------------------------------
     def train(self, max_iter: Optional[int] = None, log_every: int = 20,
               profile_at: Optional[int] = None):
-        _check_single_process("training")
         source = self.build_train_loader()
         loader = source.iter_from(self.iteration)  # resume-exact data stream
         max_iter = max_iter or self.train_cfg.max_iter
@@ -201,11 +216,16 @@ class Trainer:
                     prof = _start_profile(self.device)
                 host = next(loader)
                 data_wait += source.last_wait_s
+                gen, pri = self._draws(self.iteration, host)
+                if self.group is not None:  # this rank's clips of the global batch
+                    host = shard_rows({**host, "reid_priorities": pri}, self.rank, self.world)
+                    pri = host.pop("reid_priorities")
                 # the copy is queued on the step's stream: the step reads the
                 # batch only after it lands
                 batch = {k: v.to(self.device, non_blocking=True) for k, v in host.items()}
-                gen, pri = self._draws(self.iteration, batch)
-                total, ldict = self.step_fn(self.model, self.optimizer, batch, gen, pri)
+                step_stats = {} if (self.iteration + 1) % log_every == 0 else None
+                total, ldict = self.step_fn(self.model, self.optimizer, batch, gen,
+                                            pri.to(self.device), step_stats)
                 self.iteration += 1
                 if prof is not None and self.iteration == profile_at + 3:
                     _stop_profile(prof, self.device, self.output_dir)
@@ -221,10 +241,13 @@ class Trainer:
                     data_wait = 0.0
                     row.update({k: float(v) for k, v in ldict.items()})
                     row.update(self._device_stats(launches))
+                    row.update(world_size=self.world, dist_backend=dist.backend(),
+                               allreduce_s=step_stats.get("allreduce_s", 0.0))
                     launches = _launch_counts()
                     self._log(row)
-                    print(f"iter {self.iteration}  loss {total:.4f}  {dt:.2f}s/it",
-                          flush=True)
+                    if self.rank == 0:
+                        print(f"iter {self.iteration}  loss {total:.4f}  {dt:.2f}s/it",
+                              flush=True)
                 if self.iteration % ckpt_period == 0 or self.iteration == max_iter:
                     self.save_checkpoint()
                 if eval_period > 0 and self.iteration % eval_period == 0:
@@ -243,6 +266,9 @@ class Trainer:
         return stats
 
     def _log(self, row: Dict) -> None:
+        """Append ``row`` to ``metrics.jsonl`` (rank 0's rows only)."""
+        if self.rank != 0:
+            return
         with open(os.path.join(self.output_dir, "metrics.jsonl"), "a") as f:
             f.write(json.dumps(row) + "\n")
 
@@ -250,17 +276,29 @@ class Trainer:
     def save_checkpoint(self) -> str:
         """Full training state: the model's state dict, AdamW's state, the
         optimizer's step count (it drives the LR schedule) and the
-        iteration, written to ``ckpt_{iteration:07d}.pth``."""
+        iteration, written to ``ckpt_{iteration:07d}.pth`` by rank 0 while
+        the other ranks wait. Over several ranks the replicas' checksums are
+        compared first (``state_sha256``): they step alike, so a difference
+        is a fault, and rank 0's state would not stand for the others'."""
         path = os.path.abspath(os.path.join(self.output_dir,
                                             f"ckpt_{self.iteration:07d}.pth"))
-        state = {"model": self.model.state_dict(),
-                 "optimizer": self.optimizer.adamw.state_dict(),
-                 "step_count": self.optimizer.step_count,
-                 "iteration": self.iteration}
-        tmp = path + ".tmp"
-        torch.save(state, tmp)
-        os.replace(tmp, path)
-        print(f"saved checkpoint {path}", flush=True)
+        if self.group is not None:
+            sums = dist.all_gather_objects(state_sha256(self.model))
+            if len(set(sums)) != 1:
+                raise RuntimeError(f"the ranks' parameters differ at iteration "
+                                   f"{self.iteration}: {sums}")
+            self._log({"iteration": self.iteration, "checkpoint": path,
+                       "state_sha256": sums[0], "world_size": self.world})
+        if self.rank == 0:
+            state = {"model": self.model.state_dict(),
+                     "optimizer": self.optimizer.adamw.state_dict(),
+                     "step_count": self.optimizer.step_count,
+                     "iteration": self.iteration}
+            tmp = path + ".tmp"
+            torch.save(state, tmp)
+            os.replace(tmp, path)
+            print(f"saved checkpoint {path}", flush=True)
+        dist.barrier()
         return path
 
     def load_checkpoint(self, path: str, params_only: bool = False):
@@ -303,29 +341,47 @@ class Trainer:
     # ------------------------------------------------------------------
     def test(self, dataset_name: Optional[str] = None, max_videos: Optional[int] = None):
         """VIS inference over a test split and its AP (when the GT has
-        annotations). Writes ``results_<name>.json`` and a ``metrics.jsonl``
-        row (clips, clips/s, the host seconds of RLE encoding and of the
-        evaluation, kernel launches, the AP table); returns (metrics,
-        predictions)."""
+        annotations). Over W ranks rank r predicts ``records[r::W]`` and the
+        predictions are gathered to every rank, in the order of the records;
+        rank 0 alone evaluates and writes ``results_<name>.json`` and a
+        ``metrics.jsonl`` row (clips, clips/s, the host seconds of RLE
+        encoding and of the evaluation, its own kernel launches, the AP
+        table; over several ranks the clips and RLE seconds of all ranks, the
+        slowest rank's predict seconds and each rank's video ids). Returns
+        (metrics, or None on the other ranks, predictions)."""
         cfg = self.cfg
         name = dataset_name or cfg.DATASETS.TEST[0]
         if name.startswith("coco"):
             return self.test_coco(name, max_videos)
-        _check_single_process("testing")
         root, _, json_path = _dataset_paths(self.datasets_root, name)
         with open(json_path) as f:
             gt_json = json.load(f)
         records = get_dataset(name, root)
         if max_videos:
             records = records[:max_videos]
+        mine = records[self.rank::self.world]
         self.test_stats = {"clips": 0, "predict_s": 0.0, "rle_s": 0.0, "evaluate_s": 0.0}
         launches = _launch_counts()
         t0 = time.perf_counter()
-        predictions = self.predict_videos(records, self.test_stats)
+        per_video = self.predict_videos(mine, self.test_stats)
         self.test_stats["predict_s"] = time.perf_counter() - t0
-        self.test_stats["predictions"] = len(predictions)
         self.test_stats.update(self._device_stats(launches))
+        if self.world > 1:
+            parts = dist.all_gather_objects((per_video, self.test_stats,
+                                             [r["video_id"] for r in mine]))
+            # back into the order of the records: video i was rank i % W's
+            per_video = [parts[i % self.world][0][i // self.world]
+                         for i in range(len(records))]
+            self.test_stats.update(
+                clips=sum(p[1]["clips"] for p in parts),
+                rle_s=sum(p[1]["rle_s"] for p in parts),
+                predict_s=max(p[1]["predict_s"] for p in parts),
+                videos_per_rank=[p[2] for p in parts])
+        predictions = [p for video in per_video for p in video]
+        self.test_stats["predictions"] = len(predictions)
         metrics = None
+        if self.rank != 0:
+            return metrics, predictions
         if gt_json.get("annotations"):
             t0 = time.perf_counter()
             metrics = YTVISEvaluator(gt_json).evaluate(predictions)
@@ -337,18 +393,21 @@ class Trainer:
         st = self.test_stats
         self._log({"iteration": self.iteration, "test": name, "videos": len(records),
                    **st, "clips_per_s": st["clips"] / max(st["predict_s"], 1e-9),
+                   "world_size": self.world,
                    **{k: v for k, v in (metrics or {}).items() if not isinstance(v, dict)}})
         return metrics, predictions
 
-    def predict_videos(self, records: List[Dict], stats: Optional[Dict] = None) -> List[Dict]:
-        """VIS predictions of ``records`` in the results-file format; adds
-        the clip count and the RLE host seconds to ``stats`` when given."""
+    def predict_videos(self, records: List[Dict], stats: Optional[Dict] = None
+                       ) -> List[List[Dict]]:
+        """VIS predictions of each of ``records``, a list per record in the
+        results-file format; adds the clip count and the RLE host seconds to
+        ``stats`` when given."""
         cfg = self.cfg
         stats = {"clips": 0, "rle_s": 0.0} if stats is None else stats
         min_test = cfg.INPUT.MIN_SIZE_TEST
         max_test = cfg.INPUT.get("MAX_SIZE_TEST", 1333)
         T, stride = self.inf_cfg.n_frames_test, self.inf_cfg.clip_stride
-        predictions = []
+        videos = []
         for rec in records:
             H, W = rec["height"], rec["width"]
             th, tw = size_for_test(H, W, min_test, max_test)
@@ -360,21 +419,22 @@ class Trainer:
                                 pixel_std=tuple(cfg.MODEL.PIXEL_STD), device=self.device)
             stats["clips"] += -(-max(len(video) - T, 0) // stride) + 1
             t0 = time.perf_counter()
-            for score, label, mask in zip(out["pred_scores"], out["pred_labels"],
-                                          out["pred_masks"]):
-                predictions.append({
-                    "video_id": rec["video_id"],
-                    "category_id": int(label) + 1,  # back to 1-based json ids
-                    "score": float(score),
-                    "segmentations": [rle_util.encode(m) for m in mask],
-                })
+            videos.append([{
+                "video_id": rec["video_id"],
+                "category_id": int(label) + 1,  # back to 1-based json ids
+                "score": float(score),
+                "segmentations": [rle_util.encode(m) for m in mask],
+            } for score, label, mask in zip(out["pred_scores"], out["pred_labels"],
+                                            out["pred_masks"])])
             stats["rle_s"] += time.perf_counter() - t0
-        return predictions
+        return videos
 
     def test_coco(self, name: str, max_images: Optional[int] = None):
         """COCO image instance segmentation over a split, scored as one-frame
-        videos by the VIS evaluator (video IoU is image IoU at T = 1)."""
-        _check_single_process("testing")
+        videos by the VIS evaluator (video IoU is image IoU at T = 1). Over
+        several ranks each rank predicts and scores every image, as the JAX
+        package's processes do; it writes no file, and only rank 0 prints the
+        AP."""
         _, image_root, json_path = _dataset_paths(self.datasets_root, name)
         with open(json_path) as f:
             gt_json = json.load(f)
@@ -405,8 +465,9 @@ class Trainer:
                 {**gt_json, "images": images,
                  "annotations": [a for a in gt_json["annotations"] if a["image_id"] in ids]}))
             metrics = ev.evaluate(predictions)
-            print({k: round(v, 2) for k, v in metrics.items()
-                   if not isinstance(v, dict)}, flush=True)
+            if self.rank == 0:
+                print({k: round(v, 2) for k, v in metrics.items()
+                       if not isinstance(v, dict)}, flush=True)
         return metrics, predictions
 
 

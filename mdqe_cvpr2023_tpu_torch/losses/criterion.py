@@ -63,8 +63,10 @@ def _normalize(x):
 # elementary losses
 # ---------------------------------------------------------------------------
 
-def sigmoid_focal_loss(logits, targets, no_obj_weight, alpha=0.25, gamma=2.0):
-    """(BQ, K) focal loss with the per-query no-object down-weight."""
+def sigmoid_focal_sums(logits, targets, no_obj_weight, alpha=0.25, gamma=2.0):
+    """(BQ, K) focal loss with the per-query no-object down-weight, as
+    (weighted sum, sum of the weights): the loss is their ratio, the weight
+    sum clamped at 1."""
     x = logits.float()
     p = torch.sigmoid(x)
     ce = F.softplus(x) - x * targets
@@ -74,7 +76,7 @@ def sigmoid_focal_loss(logits, targets, no_obj_weight, alpha=0.25, gamma=2.0):
     loss = alpha_t * loss
     is_obj = (targets > 0).any(-1)
     weight = is_obj.float() + no_obj_weight * (~is_obj).float()
-    return (loss.sum(-1) * weight).sum() / weight.sum().clamp(min=1.0)
+    return (loss.sum(-1) * weight).sum(), weight.sum()
 
 
 def weighted_sigmoid_focal_loss(logits, targets, dist_weight, num_boxes,
@@ -95,12 +97,16 @@ def weighted_sigmoid_focal_loss(logits, targets, dist_weight, num_boxes,
 # per-layer matched losses
 # ---------------------------------------------------------------------------
 
-def hungarian_layer_losses(cfg: CriterionCfg, cls_l, boxes_l, coeff_l, proto,
-                           targets, amp: bool = False):
-    """One decoder layer over the batch. cls_l (B,Q,K) logits; boxes_l
-    (B,Q,T,4) xyxy; coeff_l (B,Q,M); proto (B,T,h,w,M); targets as
-    ``criterion_apply`` takes them. ``amp``: the mask terms in bf16 with fp32
-    sums (the JAX package's ``_per_video_layer(..., amp=True)``)."""
+def hungarian_layer_sums(cfg: CriterionCfg, cls_l, boxes_l, coeff_l, proto,
+                         targets, amp: bool = False):
+    """One decoder layer over the batch, before its normalization. cls_l
+    (B,Q,K) logits; boxes_l (B,Q,T,4) xyxy; coeff_l (B,Q,M); proto
+    (B,T,h,w,M); targets as ``criterion_apply`` takes them. ``amp``: the mask
+    terms in bf16 with fp32 sums (the JAX package's ``_per_video_layer(...,
+    amp=True)``). Returns (sums by loss name, matched pairs, focal weight
+    sum): ``loss_cls`` is its sum over the weight sum, ``loss_bbox`` and
+    ``loss_giou`` their sums over T x matched pairs, the mask losses theirs
+    over the matched pairs (each denominator clamped at 1)."""
     cdt = torch.bfloat16 if amp else torch.float32
     B, Q, K = cls_l.shape
     T = boxes_l.shape[2]
@@ -184,16 +190,28 @@ def hungarian_layer_losses(cfg: CriterionCfg, cls_l, boxes_l, coeff_l, proto,
         loss_mask_sum = (A * bce_pair).sum()
         loss_dice_sum = (A * batch_dice_cost(om, tm, cdt)).sum()
 
-    num_masks = num_matched.clamp(min=1.0)
-    loss_cls = sigmoid_focal_loss(cls_l.reshape(B * Q, K),
-                                  target_classes.reshape(B * Q, K), cfg.eos_coef)
+    loss_cls_sum, cls_weight = sigmoid_focal_sums(cls_l.reshape(B * Q, K),
+                                                  target_classes.reshape(B * Q, K),
+                                                  cfg.eos_coef)
+    return ({"loss_cls": loss_cls_sum, "loss_bbox": loss_bbox_sum,
+             "loss_giou": loss_giou_sum, "loss_mask": loss_mask_sum,
+             "loss_dice": loss_dice_sum}, num_matched, cls_weight)
+
+
+def _layer_losses(sums, num_masks, cls_weight, T: int, world: int = 1):
+    """A layer's losses from its sums and its clamped denominators; with
+    ``world`` > 1 each numerator is taken ``world`` times (see
+    ``criterion_apply``)."""
+    if world > 1:
+        sums = {k: world * v for k, v in sums.items()}
     return {
-        "loss_cls": loss_cls,
-        "loss_bbox": loss_bbox_sum / (T * num_masks),
-        "loss_giou": loss_giou_sum / (T * num_masks),
-        "loss_mask": loss_mask_sum / num_masks,
-        "loss_dice": loss_dice_sum / num_masks,
+        "loss_cls": sums["loss_cls"] / cls_weight,
+        "loss_bbox": sums["loss_bbox"] / (T * num_masks),
+        "loss_giou": sums["loss_giou"] / (T * num_masks),
+        "loss_mask": sums["loss_mask"] / num_masks,
+        "loss_dice": sums["loss_dice"] / num_masks,
     }
+
 
 
 # ---------------------------------------------------------------------------
@@ -272,11 +290,13 @@ def reid_losses(cfg: CriterionCfg, embeds, q_ids, gt_ids, gt_valid, relpos_grid,
             use.float().sum())
 
 
-def query_init_losses(cfg: CriterionCfg, rpn_logits, query_init_embed,
-                      query_coords_grid, targets, relpos_grid, priorities):
+def query_init_sums(cfg: CriterionCfg, rpn_logits, query_init_embed,
+                    query_coords_grid, targets, relpos_grid, priorities):
     """rpn_logits (BT,H,W,K); query_init_embed (BT,Q,E); query_coords_grid
     (BT,nb,nb,2) in [-1, 1]; targets with the stride-8 masks 'masks8'
-    (B,N,T,H*W); priorities as ``reid_losses``."""
+    (B,N,T,H*W); priorities as ``reid_losses``. Returns (the semantic loss, a
+    mean over the BT frames, the reid ctt and aux sums, the number of
+    instances they sum over)."""
     BT, H, W, K = rpn_logits.shape
     T = cfg.n_frames
     B = BT // T
@@ -312,10 +332,7 @@ def query_init_losses(cfg: CriterionCfg, rpn_logits, query_init_embed,
     emb = query_init_embed.reshape(B, T, cfg.n_query, -1).float()
     ctt, aux, cnt = reid_losses(cfg, emb, q_ids, targets["ids"].long(),
                                 targets["valid"], relpos_grid, priorities)
-    total_cnt = cnt.clamp(min=1.0)
-    return {"loss_sem_cls_query_init": sem_loss,
-            "loss_reid_query_init": ctt / total_cnt,
-            "loss_reid_query_init_aux": aux / total_cnt}
+    return sem_loss, ctt, aux, cnt
 
 
 # ---------------------------------------------------------------------------
@@ -323,15 +340,28 @@ def query_init_losses(cfg: CriterionCfg, rpn_logits, query_init_embed,
 # ---------------------------------------------------------------------------
 
 def criterion_apply(cfg: CriterionCfg, outputs, targets, relpos_grid,
-                    generator=None, reid_priorities=None, amp: bool = False):
+                    generator=None, reid_priorities=None, amp: bool = False,
+                    group=None):
     """outputs: the decoder's training dict ('cls' (L,B,Q,K), 'boxes'
     (L,B,Q,T,4), 'mask_coeff' (L,B,Q,M), 'proto' (BT,h,w,M), 'query_init').
     targets: 'labels' (B,N), 'ids' (B,N,T), 'boxes' (B,N,T,4) xyxy, 'valid'
     (B,N), 'match_masks' (B,N,T,h,w), 'masks8' (B,N,T,P8). relpos_grid (Q,Q,2)
     on the device. The reid priorities (B,N,2,T*Q) are drawn uniformly from
     ``generator`` unless ``reid_priorities`` gives them. ``amp``: the matched
-    mask losses in bf16 with fp32 sums (``hungarian_layer_losses``). Returns
-    (total, the weighted losses by name)."""
+    mask losses in bf16 with fp32 sums (``hungarian_layer_sums``). Returns
+    (total, the weighted losses by name).
+
+    ``group`` (a ``torch.distributed`` process group of W ranks, each with
+    its own rows of the global batch): the losses' denominators are the
+    global batch's, as the JAX package's global-batch loss has them. The
+    2L+1 counts (the reid instances, and each layer's matched pairs and
+    focal weight sum) are summed over the ranks in one all-reduce, then
+    clamped at 1. Each rank's term is W x (its sum) / (global denominator),
+    so with g_r the gradient of rank r's loss, mean_r g_r = grad(sum_r s_r /
+    D), the gradient of the global-batch loss. The semantic loss stays a
+    mean over the rank's BT rows: the ranks hold equal numbers of rows, so
+    the mean of their means is the global mean. With no group the counts are
+    the batch's own."""
     L, B, Q, K = outputs["cls"].shape
     T = cfg.n_frames
     proto = outputs["proto"].reshape(B, T, *outputs["proto"].shape[1:])
@@ -343,12 +373,29 @@ def criterion_apply(cfg: CriterionCfg, outputs, targets, relpos_grid,
                                      device=outputs["cls"].device)
 
     qi = outputs["query_init"]
-    losses = query_init_losses(cfg, qi["rpn_sem_cls"], qi["query_init_embed"],
-                               qi["query_coords_grid"], targets, relpos_grid,
-                               reid_priorities)
-    for l in range(L):
-        ld = hungarian_layer_losses(cfg, outputs["cls"][l], outputs["boxes"][l],
-                                    outputs["mask_coeff"][l], proto, targets, amp)
+    sem_loss, ctt, aux, cnt = query_init_sums(cfg, qi["rpn_sem_cls"],
+                                              qi["query_init_embed"],
+                                              qi["query_coords_grid"], targets,
+                                              relpos_grid, reid_priorities)
+    layers = [hungarian_layer_sums(cfg, outputs["cls"][l], outputs["boxes"][l],
+                                   outputs["mask_coeff"][l], proto, targets, amp)
+              for l in range(L)]
+    # [reid count, matched pairs per layer, focal weight sum per layer]
+    counts = torch.stack([cnt] + [m for _, m, _ in layers]
+                         + [w for _, _, w in layers]).detach()
+    world = 1
+    if group is not None:
+        torch.distributed.all_reduce(counts, group=group)
+        world = torch.distributed.get_world_size(group)
+    counts = counts.clamp(min=1.0)
+    if world > 1:
+        ctt, aux = world * ctt, world * aux
+    losses = {"loss_sem_cls_query_init": sem_loss,
+              "loss_reid_query_init": ctt / counts[0],
+              "loss_reid_query_init_aux": aux / counts[0]}
+    for l, (sums, _, _) in enumerate(layers):
+        ld = _layer_losses(sums, counts[1 + l], counts[1 + L + l],
+                           outputs["boxes"].shape[3], world)
         suffix = "" if l == L - 1 else f"_{l}"
         for k, v in ld.items():
             losses[k + suffix] = v

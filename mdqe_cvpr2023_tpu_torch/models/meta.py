@@ -10,24 +10,34 @@ windows of ``n_frames_window_test`` frames encoded ``encode_chunk`` frames at
 a time, S = 8 clips of a window decoded in one batch, and at the video end the
 final top-k chosen first so that only the selected rows of deferred windows
 are upsampled and copied to the host.
+
+``inference_vis(devices=[...])`` (the JAX package's ``mesh=``) shards the
+window encode by frames: one process, each chunk's frames split evenly over
+the devices, each device encoding its share with its own copy of the
+weights, and the three outputs gathered onto the first device, where the
+decoder, the tracker and the finalize run.
 """
 from __future__ import annotations
 
 import contextlib
+import copy
 import itertools
 import time
+import weakref
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 from ..tracking.device_tracker import (TrackerCfg, tracker_state_init,
                                        tracker_step, tracker_window_average)
 from ..tracking.mask_memory import finalize_from_avg, packbits
 from ..utils.boxes import box_iou, masks_to_boxes
 from ..utils.misc import aligned_bilinear, resolve_device
-from .detr import MDQEModel, MDQEModelCfg, detr_apply_coco, detr_mask_feats
+from .detr import (DeformableDETR, MDQEModel, MDQEModelCfg, detr_apply_coco, detr_encode,
+                   detr_mask_feats)
 
 S_BATCH = 8                 # clips of one window decoded together
 FINALIZE_CHUNK = 8          # rows per mask-finalize call
@@ -149,14 +159,14 @@ def postprocess_clip(cls_probs, mask_coeff, query_embeds, mask_feats,
     }
 
 
-def encode_window(model: MDQEModel, frames_u8, image_sizes, pixel_mean,
+def encode_window(detr: nn.Module, frames_u8, image_sizes, pixel_mean,
                   pixel_std, spatial_shapes, bf16_params=None):
-    """Backbone + encoder + mask head for a chunk of frames. frames_u8
+    """Backbone + encoder + mask head for a chunk of frames: ``detr`` is the
+    model's DeformableDETR or an ``_EncodeCopy`` of it. frames_u8
     (T,Hp,Wp,3) uint8 on the device, normalized here. With ``bf16_params``
     (bf16 copies of the encode weights) backbone, input projections and
     encoder run in bf16; the mask head runs in fp32 on the fp32 encoding.
     Returns (encoded (T,N,C) fp32, mask_flat (T,N), mask feats (T,h4,w4,M))."""
-    detr = model.detr
     images = (frames_u8.float() - pixel_mean) / pixel_std
     if bf16_params is not None:
         encoded, mask_flat, _ = torch.func.functional_call(
@@ -165,6 +175,76 @@ def encode_window(model: MDQEModel, frames_u8, image_sizes, pixel_mean,
         encoded, mask_flat, _ = detr(images, image_sizes)
     encoded = encoded.float()
     return encoded, mask_flat, detr_mask_feats(detr, encoded, spatial_shapes)
+
+
+class _EncodeCopy(nn.Module):
+    """A copy of the window encode's modules of a DeformableDETR on another
+    device, under the same names: the backbone, the input projections, the
+    encoder and the decoder's mask head (the rest of the decoder is not
+    copied). ``forward`` is ``detr_encode``, as the model's is."""
+
+    def __init__(self, detr: DeformableDETR, device: torch.device):
+        super().__init__()
+        self.cfg = detr.cfg
+        with torch.inference_mode(False):  # parameters, not inference tensors
+            for name in ("backbone", "input_proj", "transformer_enc"):
+                setattr(self, name, copy.deepcopy(getattr(detr, name)).to(device))
+            self.transformer_dec = nn.Module()
+            self.transformer_dec.mask_head = copy.deepcopy(
+                detr.transformer_dec.mask_head).to(device)
+
+    def forward(self, images, image_sizes):
+        return detr_encode(self, images, image_sizes)
+
+
+def _bf16_encode_params(detr: nn.Module):
+    named = itertools.chain(detr.named_parameters(), detr.named_buffers())
+    return {n: t.bfloat16() for n, t in named
+            if n.startswith(ENCODE_PREFIXES) and t.is_floating_point()}
+
+
+def _weights_version(modules) -> tuple:
+    """Changes whenever a tensor of ``modules`` is replaced or written in
+    place (an optimizer step, ``load_state_dict``)."""
+    return tuple((t.data_ptr(), t._version) for m in modules
+                 for t in itertools.chain(m.parameters(), m.buffers()))
+
+
+# model -> {device: (the weights' version, _EncodeCopy, its bf16 weights or None)}
+_ENCODE_COPIES = weakref.WeakKeyDictionary()
+
+
+def _encoders(model: MDQEModel, devices, bf16_encode: bool, pixel_mean, pixel_std):
+    """For each of ``devices``: (the module that encodes there, its bf16
+    encode weights or None, pixel mean, pixel std). The model's own device
+    uses the model and casts the bf16 weights per call, as the unsharded
+    path does. Each other device uses an ``_EncodeCopy`` kept across calls
+    and built again only when the model's encode weights have changed
+    since; entries that repeat a device share it."""
+    detr = model.detr
+    copies = _ENCODE_COPIES.setdefault(model, {})
+    version = None
+    by_device = {}
+    for d in devices:
+        if d in by_device:
+            continue
+        if d == model.device:
+            enc, bf16 = detr, _bf16_encode_params(detr) if bf16_encode else None
+        else:
+            if version is None:
+                version = _weights_version((detr.backbone, detr.input_proj,
+                                            detr.transformer_enc,
+                                            detr.transformer_dec.mask_head))
+            kept = copies.get(d)
+            if kept is None or kept[0] != version or (kept[2] is None) == bf16_encode:
+                enc = _EncodeCopy(detr, d)
+                kept = copies[d] = (version, enc,
+                                    _bf16_encode_params(enc) if bf16_encode else None)
+            _, enc, bf16 = kept
+        by_device[d] = (enc, bf16,
+                        torch.tensor(pixel_mean, dtype=torch.float32, device=d),
+                        torch.tensor(pixel_std, dtype=torch.float32, device=d))
+    return [by_device[d] for d in devices]
 
 
 def decode_clips_batched(model: MDQEModel, window_encoded, window_mask_flat,
@@ -238,17 +318,26 @@ def inference_vis(model: MDQEModel, inf_cfg: InferenceCfg, frames: np.ndarray,
                   image_size: Tuple[int, int], ori_size: Tuple[int, int],
                   pixel_mean=(123.675, 116.28, 103.53),
                   pixel_std=(58.395, 57.12, 57.375), device=None,
-                  timers: Optional[dict] = None):
+                  timers: Optional[dict] = None, devices=None):
     """Near-online VIS on one video.
 
     frames: (T, Hp, Wp, 3) padded uint8 on the host; image_size: true (h, w)
     before padding; ori_size: the video's original (h, w). Runs on the card
     unless ``device="cpu"``; the model must be on that device. ``timers``: a
     dict that receives host seconds per stage (each stage then ends in a
-    device synchronize). Returns {image_size, pred_scores, pred_labels,
-    pred_masks (list of (T, oh, ow) bool), num_tracks}.
+    device synchronize). ``devices`` (a list, which may repeat a device):
+    the window encode is sharded by frames over them, the encode chunk
+    rounded up to a multiple of their number; everything else runs on the
+    first, where the model must be (and which ``device``, if given, must
+    name). Returns {image_size, pred_scores, pred_labels, pred_masks (list of
+    (T, oh, ow) bool), num_tracks}.
     """
-    dev = resolve_device(device)
+    if devices is not None:
+        devices = [resolve_device(d) for d in devices]
+        if not devices or (device is not None and resolve_device(device) != devices[0]):
+            raise ValueError(f"devices {devices} must be non-empty and start with "
+                             f"device {device}")
+    dev = resolve_device(device) if devices is None else devices[0]
     if model.device != dev:
         raise ValueError(f"model is on {model.device}, inference asked for {dev}")
     # Full fp32 matmuls and convolutions (no TF32): the fp32 parts (decoder,
@@ -268,14 +357,9 @@ def inference_vis(model: MDQEModel, inf_cfg: InferenceCfg, frames: np.ndarray,
     W_win = inf_cfg.n_frames_window_test
     stride = inf_cfg.clip_stride
     shapes = spatial_shapes_for(model_cfg, frames.shape[1:3])
-    mean_dev = torch.tensor(pixel_mean, dtype=torch.float32, device=dev)
-    std_dev = torch.tensor(pixel_std, dtype=torch.float32, device=dev)
-    bf16_params = None
-    if inf_cfg.bf16_encode:
-        named = itertools.chain(model.detr.named_parameters(),
-                                model.detr.named_buffers())
-        bf16_params = {n: t.bfloat16() for n, t in named
-                       if n.startswith(ENCODE_PREFIXES) and t.is_floating_point()}
+    with stage("encode_weights"):
+        encoders = _encoders(model, devices or [dev], inf_cfg.bf16_encode,
+                             pixel_mean, pixel_std)
 
     mask_hw = (2 * shapes[0][0], 2 * shapes[0][1])  # mask head output is stride 4
     tr_cfg = TrackerCfg(num_max_inst=inf_cfg.max_num_instances, num_frames=T_clip,
@@ -309,7 +393,11 @@ def inference_vis(model: MDQEModel, inf_cfg: InferenceCfg, frames: np.ndarray,
         if start_idx + T_clip >= video_len:
             break
 
-    chunk = max(int(inf_cfg.encode_chunk), 1)
+    # even frame sharding: the chunk is a multiple of the number of devices
+    chunk = -(-max(int(inf_cfg.encode_chunk), 1) // len(encoders)) * len(encoders)
+    share = chunk // len(encoders)
+    sizes = [torch.tensor([list(image_size)] * share, dtype=torch.int32, device=e[2].device)
+             for e in encoders]
     window = {}  # the current window only: clips visit windows in order
 
     def get_window(ws, we):
@@ -319,15 +407,18 @@ def inference_vis(model: MDQEModel, inf_cfg: InferenceCfg, frames: np.ndarray,
             wlen = -(-wf.shape[0] // chunk) * chunk
             if wf.shape[0] < wlen:  # pad the tail window to a chunk multiple
                 wf = np.concatenate([wf] + [wf[-1:]] * (wlen - wf.shape[0]))
-            sizes = torch.tensor([list(image_size)] * chunk, dtype=torch.int32,
-                                 device=dev)
             parts = []
             for c0 in range(0, wlen, chunk):
                 with stage("upload"):
-                    f = torch.from_numpy(np.ascontiguousarray(wf[c0:c0 + chunk])).to(dev)
+                    f = [torch.from_numpy(np.ascontiguousarray(
+                        wf[c0 + k * share:c0 + (k + 1) * share])).to(e[2].device)
+                        for k, e in enumerate(encoders)]
                 with stage("encode"):
-                    parts.append(encode_window(model, f, sizes, mean_dev, std_dev,
-                                               shapes, bf16_params))
+                    # every device's share is issued before any is gathered
+                    outs = [encode_window(enc, fk, sk, mean, std, shapes, bf16)
+                            for fk, sk, (enc, bf16, mean, std) in zip(f, sizes, encoders)]
+                    parts.append(outs[0] if len(outs) == 1 else tuple(
+                        torch.cat([o[j].to(dev) for o in outs]) for j in range(3)))
             window[ws] = tuple(torch.cat([p[j] for p in parts]) for j in range(3))
         return window[ws]
 

@@ -22,6 +22,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -122,6 +124,16 @@ def build_host(name: str) -> Path:
                            f"{proc.stdout}\n{proc.stderr}")
     os.replace(tmp, lib)
     return lib
+
+
+def launch(fn, device, *args) -> int:
+    """Call the launcher ``fn(*args, stream)`` with ``device`` current on this
+    thread, on that device's current stream; returns its error code. The
+    launcher runs on whatever device is current on the calling thread, so a
+    launch for ``cuda:1`` from a thread where ``cuda:0`` is current would
+    fail (one process that drives several cards: ``inference_vis(devices=)``)."""
+    with torch.cuda.device(device):
+        return fn(*args, torch.cuda.current_stream(device).cuda_stream)
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -170,11 +170,10 @@ def _fwd_launch(value, spatial_shapes, sampling_locations, attention_weights,
     lib = _build.load("ms_deform_attn")
     meta = _level_meta(shapes, str(value.device))
     out = torch.empty((B, Q, H * D), dtype=torch.float32, device=value.device)
-    stream = torch.cuda.current_stream(value.device).cuda_stream
-    err = getattr(lib, fn_name)(value.data_ptr(), meta.data_ptr(),
-                                sampling_locations.data_ptr(),
-                                attention_weights.data_ptr(), out.data_ptr(),
-                                B, N, Q, H, D, L, P, *extra, stream)
+    err = _build.launch(getattr(lib, fn_name), value.device, value.data_ptr(),
+                        meta.data_ptr(), sampling_locations.data_ptr(),
+                        attention_weights.data_ptr(), out.data_ptr(),
+                        B, N, Q, H, D, L, P, *extra)
     _raise_on(lib, fn_name, err)
     return out
 
@@ -237,12 +236,11 @@ def ms_deform_attn_bwd_cuda(value, spatial_shapes: Sequence[Tuple[int, int]],
     grad_value = torch.zeros(value.shape, dtype=torch.float32, device=value.device)
     grad_loc = torch.empty_like(sampling_locations)
     grad_attw = torch.empty_like(attention_weights)
-    stream = torch.cuda.current_stream(value.device).cuda_stream
-    err = getattr(lib, fn_name)(value.data_ptr(), meta.data_ptr(),
-                                sampling_locations.data_ptr(),
-                                attention_weights.data_ptr(), grad_output.data_ptr(),
-                                grad_value.data_ptr(), grad_loc.data_ptr(),
-                                grad_attw.data_ptr(), B, N, Q, H, D, L, P, stream)
+    err = _build.launch(getattr(lib, fn_name), value.device, value.data_ptr(),
+                        meta.data_ptr(), sampling_locations.data_ptr(),
+                        attention_weights.data_ptr(), grad_output.data_ptr(),
+                        grad_value.data_ptr(), grad_loc.data_ptr(), grad_attw.data_ptr(),
+                        B, N, Q, H, D, L, P)
     _raise_on(lib, fn_name, err)
     if site is not None:
         counts = BWD_LAUNCHES if value.dtype == torch.float32 else BWD_BF16_LAUNCHES

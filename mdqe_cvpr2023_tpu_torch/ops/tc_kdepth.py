@@ -42,9 +42,8 @@ def tc_kdepth_plain(a, b, reps: int):
     return acc
 
 
-def tc_kdepth_cuda(a, b, reps: int, count: bool = True):
-    """Launch ``tc_kdepth_bf16`` on the current stream; count the launch in
-    ``LAUNCHES`` unless ``count`` is False (comparisons)."""
+def _check_inputs(a, b, reps: int):
+    """The kernel's shape, type, alignment and device rules; returns (M, K, N)."""
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"a {tuple(a.shape)} and b {tuple(b.shape)} do not chain")
     M, K = a.shape
@@ -62,11 +61,17 @@ def tc_kdepth_cuda(a, b, reps: int, count: bool = True):
             raise ValueError(f"{name} must be on {a.device}, is on {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    return M, K, N
+
+
+def tc_kdepth_cuda(a, b, reps: int, count: bool = True):
+    """Launch ``tc_kdepth_bf16`` on the current stream; count the launch in
+    ``LAUNCHES`` unless ``count`` is False (comparisons)."""
+    M, K, N = _check_inputs(a, b, reps)
     lib = _build.load("tc_kdepth")
     out = torch.empty((M, N), dtype=torch.float32, device=a.device)
-    stream = torch.cuda.current_stream(a.device).cuda_stream
-    err = lib.tc_kdepth_bf16(a.data_ptr(), b.data_ptr(), out.data_ptr(), M, N, K, reps,
-                             stream)
+    err = _build.launch(lib.tc_kdepth_bf16, a.device, a.data_ptr(), b.data_ptr(),
+                        out.data_ptr(), M, N, K, reps)
     if err != 0:
         raise RuntimeError(f"tc_kdepth_bf16 launch failed: "
                            f"{lib.tc_error_string(err).decode()} ({err})")

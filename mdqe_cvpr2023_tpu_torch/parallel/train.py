@@ -4,14 +4,27 @@ the backward (through the CUDA deformable-attention backward kernel on the
 card) and AdamW with the backbone at x0.1 LR, the frozen set and the global-norm
 clip, all as the JAX package's ``make_optimizer`` / ``make_train_step`` compute
 them, in fp32 or, with ``amp``, in mixed precision (bf16 model and mask
-products, fp32 islands, sums and masters). Data parallelism over several
-cards is not ported yet.
+products, fp32 islands, sums and masters).
+
+Data parallelism (the JAX package jits the global-batch step over a device
+mesh and XLA inserts the gradient all-reduce): W processes in a
+``torch.distributed`` group, each with its rows of the global batch
+(``shard_rows``) and a replica of the weights (``broadcast_parameters`` at
+the start). The criterion sums its denominators over the group
+(``criterion_apply(group=)``), so the mean of the ranks' gradients is the
+gradient of the global-batch loss; the step all-reduces the gradients in
+flat buckets (``allreduce_gradients``) and divides by W before the clip and
+AdamW, which every rank then applies alike. The reduction follows the
+backward (no overlap).
 """
 from __future__ import annotations
 
 import functools
+import hashlib
+import itertools
+import time
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -139,11 +152,12 @@ def _relpos(n_query: int, device: str) -> torch.Tensor:
 def loss_fn(model: MDQEModel, crit_cfg: CriterionCfg, batch, generator=None,
             dropout_rate: float = 0.1, reid_priorities=None,
             match_stride: int = MATCH_STRIDE, pixel_mean=PIXEL_MEAN, pixel_std=PIXEL_STD,
-            amp: bool = False):
+            amp: bool = False, group=None):
     """The loss of ``make_train_step``: images (BT,Hp,Wp,3) raw uint8 (or
     float) normalized on the device, the training forward with dropout from
-    ``generator``, the criterion; both in mixed precision with ``amp``.
-    Returns (total, the weighted losses), fp32."""
+    ``generator``, the criterion (with the global batch's denominators over
+    ``group``); both in mixed precision with ``amp``. Returns (total, the
+    weighted losses), fp32."""
     images = batch["images"]
     dev = images.device
     mean = torch.tensor(pixel_mean, dtype=torch.float32, device=dev)
@@ -156,34 +170,154 @@ def loss_fn(model: MDQEModel, crit_cfg: CriterionCfg, batch, generator=None,
     targets = {"labels": batch["labels"], "ids": batch["ids"], "boxes": batch["boxes"],
                "valid": batch["valid"], "match_masks": match_masks, "masks8": masks8}
     return criterion_apply(crit_cfg, out, targets, _relpos(crit_cfg.n_query, str(dev)),
-                           generator, reid_priorities, amp)
+                           generator, reid_priorities, amp, group)
+
+
+BUCKET_BYTES = 25 * 2 ** 20  # gradient bytes per all-reduce
+
+
+def trainable_parameters(model: MDQEModel):
+    """The parameters the optimizer steps, in ``named_parameters`` order: the
+    order every rank reduces them in."""
+    return [p for _, p in model.named_parameters() if p.requires_grad]
+
+
+def allreduce_gradients(model: MDQEModel, group) -> int:
+    """Average the trainable parameters' gradients over ``group``: flat
+    buckets of about BUCKET_BYTES (in ``named_parameters`` order), one
+    all-reduce (sum) each, divided by the world size. The gradients are
+    fp32, under AMP too (its bf16 weights are casts inside the graph of the
+    fp32 masters). A parameter without a gradient on this rank gets zeros
+    first, so that every rank reduces the same list (a gradient missing on
+    one rank only would leave the others waiting). Returns the bytes
+    reduced."""
+    world = torch.distributed.get_world_size(group)
+    params = trainable_parameters(model)
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+        assert p.grad.dtype == torch.float32, p.grad.dtype
+    buckets, cur, size = [], [], 0
+    for p in params:
+        nbytes = p.grad.numel() * p.grad.element_size()
+        if cur and size + nbytes > BUCKET_BYTES:
+            buckets.append(cur)
+            cur, size = [], 0
+        cur.append(p.grad)
+        size += nbytes
+    if cur:
+        buckets.append(cur)
+    total = 0
+    for grads in buckets:
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        torch.distributed.all_reduce(flat, group=group)
+        flat /= world
+        offset = 0
+        for g in grads:
+            g.copy_(flat[offset:offset + g.numel()].view_as(g))
+            offset += g.numel()
+        total += flat.numel() * flat.element_size()
+    return total
+
+
+def allreduce_mean(scalars, group):
+    """The ranks' mean of each of the scalar tensors ``scalars``, in one
+    all-reduce."""
+    stacked = torch.stack([v.detach().float() for v in scalars])
+    torch.distributed.all_reduce(stacked, group=group)
+    stacked /= torch.distributed.get_world_size(group)
+    return list(stacked.unbind())
+
+
+@torch.no_grad()
+def broadcast_parameters(model: MDQEModel, group) -> None:
+    """Copy the group's first rank's parameters and buffers to the others."""
+    src = torch.distributed.get_global_rank(group, 0)
+    for t in itertools.chain(model.parameters(), model.buffers()):
+        torch.distributed.broadcast(t.data, src=src, group=group)
+
+
+def state_sha256(model: MDQEModel) -> str:
+    """SHA-256 of every parameter's and buffer's bytes, in state-dict order:
+    equal on two ranks exactly when their replicas are bit-equal."""
+    h = hashlib.sha256()
+    for k, v in model.state_dict().items():
+        h.update(k.encode())
+        h.update(v.detach().cpu().contiguous().view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def shard_rows(batch: Dict, rank: int, world: int) -> Dict:
+    """Rank ``rank``'s rows of a global batch (numpy arrays or tensors): of
+    B clips it takes clips [rank B/W, (rank + 1) B/W), and the same clips'
+    rows of every per-frame entry (B*T rows: images, image_sizes), as the
+    JAX package's batch sharding places them. Entries with B rows (labels,
+    ids, boxes, masks, valid, and the reid priorities) are cut alike."""
+    B = batch["valid"].shape[0]
+    if world < 1 or B % world:
+        raise ValueError(f"{world} ranks cannot split a global batch of {B} clips evenly")
+    out = {}
+    for k, v in batch.items():
+        rows = v.shape[0]
+        if rows % B:
+            raise ValueError(f"batch entry {k} has {rows} rows, not a multiple of {B} clips")
+        per = rows // B * (B // world)
+        out[k] = v[rank * per:(rank + 1) * per]
+    return out
 
 
 def make_train_step(crit_cfg: CriterionCfg, dropout_rate: float = 0.1,
                     match_stride: int = MATCH_STRIDE, pixel_mean=PIXEL_MEAN,
-                    pixel_std=PIXEL_STD, amp: bool = False):
+                    pixel_std=PIXEL_STD, amp: bool = False, group=None):
     """Returns ``train_step(model, optimizer, batch, generator,
-    reid_priorities=None) -> (total, loss_dict)``: one optimizer step. The
-    batch's tensors and ``generator`` (dropout masks and reid priorities) are
-    on the model's device. fp32 matmuls and convolutions run in full fp32
-    (TF32 off); with ``amp`` the forward runs on bf16 copies of the weights
-    and the criterion's mask products in bf16 with fp32 sums
+    reid_priorities=None, stats=None) -> (total, loss_dict)``: one optimizer
+    step. The batch's tensors and ``generator`` (dropout masks and reid
+    priorities) are on the model's device. fp32 matmuls and convolutions run
+    in full fp32 (TF32 off); with ``amp`` the forward runs on bf16 copies of
+    the weights and the criterion's mask products in bf16 with fp32 sums
     (``detr_apply_backbone``, ``criterion_apply``), while the parameters,
     their gradients, the clip and AdamW stay fp32. The returned losses are
-    device tensors; nothing here waits for the card."""
+    device tensors; nothing here waits for the card.
+
+    With ``group`` the batch is this rank's rows of the global batch: the
+    criterion takes the global denominators, the gradients are averaged
+    over the group after the backward and before the clip, and the returned
+    losses are the ranks' mean (the global-batch loss; for logging, they do
+    not enter the backward). ``stats``, a dict, receives ``allreduce_s``, the
+    host seconds of the gradient reduction between two synchronizes, and
+    ``allreduce_bytes``."""
 
     def train_step(model: MDQEModel, optimizer: _Optimizer, batch, generator,
-                   reid_priorities=None):
+                   reid_priorities=None, stats: Optional[dict] = None):
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         optimizer.zero_grad()
         total, ldict = loss_fn(model, crit_cfg, batch, generator, dropout_rate,
-                               reid_priorities, match_stride, pixel_mean, pixel_std, amp)
+                               reid_priorities, match_stride, pixel_mean, pixel_std, amp,
+                               group)
         total.backward()
+        if group is not None:
+            dev = total.device
+            if stats is not None:
+                _synchronize(dev)
+                t0 = time.perf_counter()
+            nbytes = allreduce_gradients(model, group)
+            if stats is not None:
+                _synchronize(dev)
+                stats["allreduce_s"] = time.perf_counter() - t0
+                stats["allreduce_bytes"] = nbytes
         optimizer.step()
+        if group is not None:
+            total, *means = allreduce_mean([total, *ldict.values()], group)
+            ldict = dict(zip(ldict, means))
         return total.detach(), {k: v.detach() for k, v in ldict.items()}
 
     return train_step
+
+
+def _synchronize(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 # The full-width R50 training geometry on one card: the largest bucket of

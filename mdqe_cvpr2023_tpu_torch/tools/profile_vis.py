@@ -16,13 +16,20 @@ Last, where the window encode's device time goes: one encode chunk
 (``encode_chunk`` frames, the arguments of the run's first ``encode_window``
 call) profiled alone, by kernel.
 
+With ``--devices cuda:0,cuda:1,...`` each variant also runs with the window
+encode sharded by frames over those devices (``inference_vis(devices=)``),
+beside the unsharded run, and the profile adds each device's busy share;
+the sharded run's first call (which builds the other devices' copies of the
+encode weights) reports its ``encode_weights`` seconds apart.
+
 Usage: python3 -m mdqe_cvpr2023_tpu_torch.tools.profile_vis [--runs N]
-           [--backbone r50|swinl]
+           [--backbone r50|swinl] [--devices cuda:0,cuda:1,...]
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import subprocess
 import time
@@ -60,11 +67,11 @@ def device_events(prof):
             and not getattr(e, "is_user_annotation", False)]
 
 
-def _busy_and_kernels(prof, wall_s):
-    events = device_events(prof)
+def _busy_us(events):
+    """Microseconds in the union of the events' intervals."""
     spans = sorted((e.time_range.start, e.time_range.end) for e in events)
     if not spans:
-        return None, []
+        return 0.0
     busy, cur_s, cur_e = 0.0, *spans[0]
     for s, e in spans[1:]:
         if s > cur_e:
@@ -72,7 +79,14 @@ def _busy_and_kernels(prof, wall_s):
             cur_s, cur_e = s, e
         else:
             cur_e = max(cur_e, e)
-    busy += cur_e - cur_s
+    return busy + cur_e - cur_s
+
+
+def _busy_and_kernels(prof, wall_s):
+    events = device_events(prof)
+    if not events:
+        return None, []
+    busy = _busy_us(events)
     per_kernel = {}
     for e in events:
         k = per_kernel.setdefault(e.name, [0.0, 0])
@@ -120,6 +134,8 @@ def main():
     parser.add_argument("--runs", type=int, default=3, help="timed runs per variant")
     parser.add_argument("--backbone", choices=sorted(GEOMETRY), default="r50",
                         help="the model and video geometry")
+    parser.add_argument("--devices", default=None,
+                        help="also shard the window encode over these devices (comma list)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
@@ -132,38 +148,54 @@ def main():
     video = np.random.default_rng(0).integers(0, 255, (n_frames, H, W, 3)).astype(np.uint8)
     frames, _ = meta.preprocess_frames(video)
     n_clips = n_frames - inf0.n_frames_test + 1
+    shardings = [("unsharded", None)]
+    if args.devices:
+        shardings.append(("sharded", args.devices.split(",")))
     for name, inf in (("reference gates", inf0), ("crowded tracker", crowded(inf0))):
-        meta.inference_vis(model, inf, frames, (H, W), (H, W))  # warm-up
-        walls = []
-        for _ in range(args.runs):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = meta.inference_vis(model, inf, frames, (H, W), (H, W))
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t0)
-        timers = {}
-        meta.inference_vis(model, inf, frames, (H, W), (H, W), timers=timers)
-        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            meta.inference_vis(model, inf, frames, (H, W), (H, W))
-            torch.cuda.synchronize()
-            prof_wall = time.perf_counter() - t0
-        busy, top = _busy_and_kernels(prof, prof_wall)
-        events = device_events(prof)
-        dev_ms, fwd_ms = _device_ms(events), _device_ms(events, "msda_fwd")
-        print(json.dumps({
-            "variant": name, "backbone": cfg.backbone, "card": card,
-            "tracks": out["num_tracks"],
-            "wall_s": walls, "clips_per_s": [n_clips / w for w in walls],
-            "stage_s": {k: v for k, v in timers.items() if not k.endswith("_n")},
-            "profiled_wall_s": prof_wall,
-            "device_busy_share": busy if busy is not None else "not measured",
-            "device_ms": dev_ms if events else "not measured",
-            "msda_fwd_ms": fwd_ms if events else "not measured",
-            "msda_fwd_share_of_device_time": fwd_ms / dev_ms if dev_ms else "not measured",
-            "top_kernels_ms_count": top}), flush=True)
+        for sharding, devices in shardings:
+            run = functools.partial(meta.inference_vis, model, inf, frames, (H, W), (H, W),
+                                    devices=devices)
+            first = {}
+            run(timers=first)  # warm-up
+            walls = []
+            for _ in range(args.runs):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = run()
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            timers = {}
+            run(timers=timers)
+            acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+            with torch.profiler.profile(activities=acts) as prof:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+                prof_wall = time.perf_counter() - t0
+            busy, top = _busy_and_kernels(prof, prof_wall)
+            events = device_events(prof)
+            dev_ms, fwd_ms = _device_ms(events), _device_ms(events, "msda_fwd")
+            row = {
+                "variant": name, "backbone": cfg.backbone, "card": card,
+                "tracks": out["num_tracks"],
+                "wall_s": walls, "clips_per_s": [n_clips / w for w in walls],
+                "stage_s": {k: v for k, v in timers.items() if not k.endswith("_n")},
+                "profiled_wall_s": prof_wall,
+                "device_busy_share": busy if busy is not None else "not measured",
+                "device_ms": dev_ms if events else "not measured",
+                "msda_fwd_ms": fwd_ms if events else "not measured",
+                "msda_fwd_share_of_device_time": fwd_ms / dev_ms if dev_ms else "not measured",
+                "top_kernels_ms_count": top}
+            if args.devices:
+                indices = sorted({e.device_index for e in events})
+                row.update({
+                    "sharding": sharding, "devices": devices,
+                    "first_call_encode_weights_s": first["encode_weights"],
+                    "device_busy_share_by_device": {
+                        f"cuda:{i}": _busy_us([e for e in events if e.device_index == i])
+                        / 1e6 / prof_wall for i in indices}})
+            print(json.dumps(row), flush=True)
     print(json.dumps({"card": card, "encode_chunk": encode_breakdown(model, inf0, frames,
                                                                      (H, W))}), flush=True)
 

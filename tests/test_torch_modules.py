@@ -289,8 +289,8 @@ def test_bf16_encode_as_close_to_fp32_as_jax(tiny_model):
             if n.startswith(tmeta.ENCODE_PREFIXES) and t.is_floating_point()}
     args = (_t(frames), _t(sizes), _t(mean), _t(std), shapes)
     with torch.no_grad():
-        t32 = tmeta.encode_window(model, *args)
-        t16 = tmeta.encode_window(model, *args, bf16)
+        t32 = tmeta.encode_window(model.detr, *args)
+        t16 = tmeta.encode_window(model.detr, *args, bf16)
     jargs = (params, jdetr.MDQEModelCfg(**TINY), jnp.asarray(frames), jnp.asarray(sizes),
              jnp.asarray(mean), jnp.asarray(std), shapes)
     j32 = jmeta._encode_window_core(*jargs, False)
