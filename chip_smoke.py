@@ -90,6 +90,22 @@ Phases (each exits non-zero on failure; none is caught and continued):
      inference_vis with the window encode sharded by frames over two devices
      against the unsharded run; the kernels at one rank's call shapes and at
      the sharded encoder's, against their plain versions and timed;
+  6e. the demos, the host tracker and the model tools, random weights from
+     seed 0 with the class threshold at 0: ``python -m
+     mdqe_cvpr2023_tpu_torch.demo.demo`` on R50_ovis_360.yaml with two
+     36-frame 360x640 videos (PNG frames; two mp4 files of 36 frames, the
+     tracks equal to inference_vis here on the same resized frames, 24 / 30 /
+     120 launches a video, videos/s and the render share AsyncPredictor
+     hides); ``demo.clip_demo`` on R50_coco.yaml with three 480x640 images,
+     with --no-aug and with the seeded augmentation (a _vis.jpg each, the
+     detections equal to inference_image here on the same pseudo-clip, 6 / 6
+     / 24 launches an image, s/image); the host OverTracker with its memory
+     on the card against the device tracker and the CPU OverTracker on a
+     seeded stream at the VIS shapes (M 120, K 32, 90x160 masks: the same
+     matched IDs every clip, class averages within 1e-5, equal packed
+     masks; host ms a clip); analyze_model (R50, Swin-L) on the card,
+     eval_parity run / diff against Trainer.test (exit 0), convert_weights
+     inflate loaded back; the forward kernel at the demos' call shapes;
   7. the kernel tools' sweeps (block sizes, gather probe, tensor-core depth),
      each problem with the launch counts set to 0 before it and read after
      it;
@@ -105,6 +121,7 @@ Usage: python3 chip_smoke.py   (needs one CUDA card; runs from the checkout)
 import collections
 import contextlib
 import dataclasses
+import functools
 import json
 import os
 import shutil
@@ -146,8 +163,11 @@ def fail(msg):
     sys.exit(1)
 
 
+T_START = time.perf_counter()
+
+
 def phase(msg):
-    print(f"== {msg}", flush=True)
+    print(f"== {msg} [{time.perf_counter() - T_START:.1f} s]", flush=True)
 
 
 def make_inputs(torch, B, Q, H, D, P, shapes, loc_mode, vdtype, seed):
@@ -2529,6 +2549,520 @@ def ddp_entries(da, card, ddp_launches, trainer_launches, vis, vis_timings, vis_
     return entries
 
 
+# ---------------------------------------------------------------------------
+# 6e. the demos, the host tracker and the model tools
+# ---------------------------------------------------------------------------
+
+# where phase 6e runs; its subprocesses get it as --device
+DEMO_DEVICE = "cuda:0"
+# the random weights' class scores (the focal prior, about 0.01) fall below
+# every threshold: at 0 the videos keep tracks and the images detections
+DEMO_OPTS = ["MODEL.MDQE.APPLY_CLS_THRES", "0.0"]
+DEMO_VIDEOS, DEMO_FRAMES, DEMO_HW = 2, 36, (360, 640)
+CLIP_IMAGES, CLIP_HW = 3, (480, 640)
+ANALYZE_SIZE = ("384", "640")  # analyze_model's FLOP count: frames of 384x640
+# the host tracker's stream at the VIS path's shapes: 36 frames, 4-frame
+# clips, 30-frame windows, stride 1, K = clip_topk 32, M = 120, masks at
+# stride 4 of 360x640, embedding 256, 25 classes; a pool of 160 instances
+TRACK = dict(frames=36, T=4, window=30, K=32, M=120, hw=(90, 160), C=256, classes=25,
+             pool=160)
+MODULE_TIMEOUT_S = 600
+
+
+def run_module(module, args):
+    """``python -m <module> args`` from the checkout with a timeout; fails
+    on a non-zero exit. Returns (its standard output, its wall seconds)."""
+    cmd = [sys.executable, "-m", module, *args]
+    print("$ " + " ".join(cmd), flush=True)
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
+                              capture_output=True, text=True, timeout=MODULE_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        fail(f"{module} timed out after {MODULE_TIMEOUT_S} s")
+    if proc.returncode != 0:
+        print(proc.stdout[-6000:], proc.stderr[-6000:], file=sys.stderr, flush=True)
+        fail(f"{module} exited with {proc.returncode}")
+    took = time.perf_counter() - t0
+    print(f"{module} took {took:.1f} s", flush=True)
+    return proc.stdout, took
+
+
+def json_lines(text):
+    return [json.loads(l) for l in text.splitlines() if l.startswith("{")]
+
+
+def write_demo_images(root, n, hw, seed):
+    """``n`` synthetic images of ``hw`` (ellipses moving over noise: image t
+    is frame t of a video) as PNG files under ``root`` (OpenCV); returns the
+    paths."""
+    import cv2
+    os.makedirs(root, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    H, W = hw
+    yy, xx = np.mgrid[0:H, 0:W]
+    objs = [(rng.uniform(0.2, 0.8, 2) * (H, W), rng.uniform(0.06, 0.2, 2) * (H, W),
+             rng.uniform(-0.01, 0.01, 2) * (H, W), rng.integers(60, 255, 3)) for _ in range(5)]
+    paths = []
+    for t in range(n):
+        img = rng.integers(0, 50, (H, W, 3)).astype(np.uint8)
+        for c, r, v, col in objs:
+            cy, cx = np.clip(c + t * v, r, (H, W) - r)
+            img[((yy - cy) / r[0]) ** 2 + ((xx - cx) / r[1]) ** 2 <= 1.0] = col
+        paths.append(os.path.join(root, f"f{t:03d}.png"))
+        cv2.imwrite(paths[-1], img[:, :, ::-1])
+    return paths
+
+
+def vis_launches(inf, cfg, n_frames):
+    """The forward kernel's launches per call site in ``inference_vis`` of an
+    ``n_frames`` video: each window encoded ``encode_chunk`` frames at a time,
+    its clips decoded 8 at a time."""
+    T, W, s = inf.n_frames_test, inf.n_frames_window_test, inf.clip_stride
+    chunks = groups = in_window = wend = 0
+    for start in range(0, n_frames, s):
+        if min(start + T, n_frames) > wend:
+            wend = min(start + W, n_frames)
+            chunks += -(-(wend - start) // inf.encode_chunk)
+            in_window = 0
+        groups += in_window % 8 == 0
+        in_window += 1
+        if start + T >= n_frames:
+            break
+    return {"encoder": cfg.enc_layers * chunks, "decoder_box": cfg.dec_layers * groups,
+            "decoder_inst": cfg.dec_layers * cfg.n_feature_levels * groups}
+
+
+def image_launches(cfg):
+    return {"encoder": cfg.enc_layers, "decoder_box": cfg.dec_layers,
+            "decoder_inst": cfg.dec_layers * cfg.n_feature_levels}
+
+
+def vis_agree(got, want):
+    """(max |score err|, min mask IoU) of two inference_vis outputs, or None
+    where the tracks or labels differ."""
+    if len(got["pred_scores"]) != len(want["pred_scores"]) \
+            or list(got["pred_labels"]) != list(want["pred_labels"]):
+        return None
+    err = max([abs(a - b) for a, b in zip(got["pred_scores"], want["pred_scores"])] or [0.0])
+    ious = [np.logical_and(a, b).sum() / max(np.logical_or(a, b).sum(), 1)
+            for a, b in zip(got["pred_masks"], want["pred_masks"])]
+    return err, min(ious or [1.0])
+
+
+def vis_key(site):
+    """VIS_SITES[site] as a recorded call shape (recorded_sites' key)."""
+    B, Q, H, D, P, shapes, _, vdt, _ = VIS_SITES[site]
+    return (B, Q, H, D, P, shapes, str(vdt)[6:])
+
+
+def demo_trainer(config, tmp, datasets_root=None):
+    """The Trainer a demo builds from ``config`` with DEMO_OPTS (seed 0)."""
+    from mdqe_cvpr2023_tpu_torch.engine.config import load_config
+    from mdqe_cvpr2023_tpu_torch.engine.trainer import Trainer
+    cfg = load_config(config, DEMO_OPTS + ["OUTPUT_DIR", os.path.join(tmp, "ref")])
+    return Trainer(cfg, datasets_root=datasets_root, device=DEMO_DEVICE)
+
+
+def video_demo(da, card, tmp, trainer):
+    """``python -m mdqe_cvpr2023_tpu_torch.demo.demo`` on DEMO_VIDEOS synthetic
+    videos (directories of PNG frames) with DEMO_OPTS: an mp4 of DEMO_FRAMES
+    frames of DEMO_HW each; each video's tracks equal to ``inference_vis``
+    in this process on the same resized frames (``trainer``'s model, the
+    demo's seed: the same tracks and labels, scores within 5e-3, mask IoU >=
+    0.99); each video's launches ``vis_launches``. Returns (the launches of
+    all videos, the call shapes of this process's runs, the demo's last
+    line)."""
+    import cv2
+    from mdqe_cvpr2023_tpu_torch.data import rle
+    from mdqe_cvpr2023_tpu_torch.data.image import resize_image, size_for_test
+    from mdqe_cvpr2023_tpu_torch.demo.demo import read_frames
+    from mdqe_cvpr2023_tpu_torch.models import meta
+    dirs = [os.path.join(tmp, f"video{k}") for k in range(DEMO_VIDEOS)]
+    for k, d in enumerate(dirs):
+        write_demo_images(d, DEMO_FRAMES, DEMO_HW, seed=20 + k)
+    out_dir = os.path.join(tmp, "demo_out")
+    text, proc_s = run_module("mdqe_cvpr2023_tpu_torch.demo.demo", [
+        "--config-file", "configs/R50_ovis_360.yaml", "--input", *dirs, "--output", out_dir,
+        "--device", DEMO_DEVICE, "--confidence-threshold", "0", *DEMO_OPTS])
+    lines = json_lines(text)
+    for line in lines:
+        print(json.dumps(line), flush=True)
+    videos, run = lines[:-1], lines[-1]
+    if len(videos) != DEMO_VIDEOS or run.get("videos") != DEMO_VIDEOS:
+        fail(f"the video demo printed {lines}")
+    inf = trainer.inf_cfg
+    want_launches = vis_launches(inf, trainer.model_cfg, DEMO_FRAMES)
+    total, direct_s = collections.Counter(), []
+    with recorded_sites(da) as seen:
+        for d, line in zip(dirs, videos):
+            name = os.path.basename(d)
+            cap = cv2.VideoCapture(os.path.join(out_dir, f"{name}.mp4"))
+            n_read, shapes = 0, set()
+            while True:
+                ok, frame = cap.read()
+                if not ok:
+                    break
+                n_read += 1
+                shapes.add(frame.shape[:2])
+            cap.release()
+            if n_read != DEMO_FRAMES or shapes != {DEMO_HW}:
+                fail(f"{name}.mp4 holds {n_read} frames of {shapes}, want {DEMO_FRAMES} of "
+                     f"{DEMO_HW}")
+            if line["video"] != name or line["msda_launches"] != want_launches:
+                fail(f"the demo launched {line['msda_launches']} for {line['video']}, want "
+                     f"{want_launches} for {name}")
+            total.update(line["msda_launches"])
+            frames = read_frames(d)
+            t0 = time.perf_counter()  # the work of the demo's predict, with no renderer beside it
+            th, tw = size_for_test(*DEMO_HW, trainer.cfg.INPUT.MIN_SIZE_TEST,
+                                   trainer.cfg.INPUT.MAX_SIZE_TEST)
+            proc, _ = meta.preprocess_frames(np.stack([resize_image(f, th, tw) for f in frames]))
+            want = meta.inference_vis(trainer.model, inf, proc, (th, tw), DEMO_HW,
+                                      pixel_mean=tuple(trainer.cfg.MODEL.PIXEL_MEAN),
+                                      pixel_std=tuple(trainer.cfg.MODEL.PIXEL_STD),
+                                      device=DEMO_DEVICE)
+            direct_s.append(time.perf_counter() - t0)
+            saved = json.load(open(os.path.join(out_dir, f"{name}.json")))
+            got = {"pred_scores": [r["score"] for r in saved],
+                   "pred_labels": [r["category_id"] - 1 for r in saved],
+                   "pred_masks": [np.stack([rle.decode(s) for s in r["segmentations"]]
+                                           ).astype(bool) for r in saved]}
+            res = vis_agree(got, want)
+            print(f"{name}: the demo's {line['tracks']} tracks against inference_vis here: "
+                  f"{len(want['pred_scores'])}; max|score err|, min mask IoU {res}", flush=True)
+            if line["tracks"] != len(want["pred_scores"]) or res is None or res[0] > 5e-3 \
+                    or res[1] < 0.99 or not got["pred_scores"]:
+                fail(f"the video demo's tracks of {name} disagree with inference_vis")
+    busy = sum(run[f"{k}_s"] for k in ("read", "infer", "render", "json"))
+
+    def each(key):
+        return [round(v[key], 4) for v in videos]
+
+    print(f"video demo ({card}): {run['videos_per_s']:.4f} videos/s ({run['wall_s']:.3f} s "
+          f"wall for {run['videos']}, from the first read); the process {proc_s:.1f} s: "
+          f"setup (imports, Trainer) {run['setup_s']:.3f}, the videos {run['wall_s']:.3f}, "
+          f"the rest (interpreter start, exit) {proc_s - run['main_s']:.3f}", flush=True)
+    print(f"video demo, host s a video: read {each('read_s')}, inference {each('infer_s')}, "
+          f"render {each('render_s')}, json {each('json_s')}; spans from the first read: "
+          f"inference {[[round(t, 3) for t in v['infer_at']] for v in videos]}, render "
+          f"{[[round(t, 3) for t in v['render_at']] for v in videos]}", flush=True)
+    print(f"video demo, AsyncPredictor: inference beside the main thread's work "
+          f"{run['infer_hidden_s']:.4f} of {run['infer_s']:.4f} s, inside rendering "
+          f"{run['infer_in_render_s']:.4f} s ({run['infer_in_render_s'] / run['render_s']:.4f} "
+          f"of render time); wall {run['wall_s']:.3f} = busy {busy:.3f} - hidden "
+          f"{run['infer_hidden_s']:.3f} + idle {run['wall_s'] - busy + run['infer_hidden_s']:.3f}",
+          flush=True)
+    print(f"video demo, contention: video 1's inference beside video 0's render "
+          f"{videos[1]['infer_s']:.4f} s against the same work alone in this process "
+          f"{direct_s[1]:.4f} s (video 0 here {direct_s[0]:.4f}); render of video 0 (beside "
+          f"inference) {videos[0]['render_s']:.4f} s, of video 1 (alone) "
+          f"{videos[1]['render_s']:.4f} s", flush=True)
+    return dict(total), seen["fwd"], run
+
+
+def clip_demo_paths(da, card, tmp, trainer):
+    """``python -m mdqe_cvpr2023_tpu_torch.demo.clip_demo`` on CLIP_IMAGES
+    synthetic images, with ``--no-aug`` and with the seeded augmentation: a
+    ``_vis.jpg`` an image; each image's detections equal to
+    ``inference_image`` in this process on the same pseudo-clip
+    (``match_detections``); each image's launches ``image_launches``.
+    Returns (the launches of all images, the call shapes here, s/image)."""
+    from mdqe_cvpr2023_tpu_torch.data import rle
+    from mdqe_cvpr2023_tpu_torch.data.image import read_image
+    from mdqe_cvpr2023_tpu_torch.demo import clip_demo
+    from mdqe_cvpr2023_tpu_torch.models import meta
+    cfg = trainer.cfg
+    paths = write_demo_images(os.path.join(tmp, "images"), CLIP_IMAGES, CLIP_HW, seed=30)
+    want_launches = image_launches(trainer.model_cfg)
+    total, per_image = collections.Counter(), []
+    with recorded_sites(da) as seen:
+        for aug in (False, True):
+            out_dir = os.path.join(tmp, f"clip_out_{'aug' if aug else 'noaug'}")
+            text, proc_s = run_module("mdqe_cvpr2023_tpu_torch.demo.clip_demo", [
+                "--config-file", "configs/R50_coco.yaml", "--input", *paths, "--output",
+                out_dir, "--device", DEMO_DEVICE, "--confidence-threshold", "0",
+                *([] if aug else ["--no-aug"]), *DEMO_OPTS])
+            *lines, run = json_lines(text)
+            if len(lines) != len(paths) or run.get("images") != len(paths):
+                fail(f"the clip demo printed {len(lines)} image lines for {len(paths)} images")
+            rest = run["main_s"] - sum(run[k] for k in ("setup_s", "infer_s", "draw_s", "json_s"))
+            print(f"clip demo ({'aug' if aug else 'no aug'}, {card}): the process {proc_s:.1f} "
+                  f"s: setup (imports, Trainer) {run['setup_s']:.3f}, inference "
+                  f"{run['infer_s']:.3f}, drawing {run['draw_s']:.3f}, json {run['json_s']:.3f}, "
+                  f"the rest of main {rest:.3f}, outside main (interpreter start, exit) "
+                  f"{proc_s - run['main_s']:.3f}", flush=True)
+            rng = np.random.default_rng(0)
+            pipe = clip_demo.clip_pipeline(cfg, not aug)
+            for path, line in zip(paths, lines):
+                print(json.dumps(line), flush=True)
+                name = os.path.splitext(os.path.basename(path))[0]
+                vis = os.path.join(out_dir, f"{name}_vis.jpg")
+                if not os.path.exists(vis) or not os.path.getsize(vis):
+                    fail(f"the clip demo wrote no {name}_vis.jpg")
+                if line["msda_launches"] != want_launches:
+                    fail(f"the clip demo launched {line['msda_launches']} for {name}, want "
+                         f"{want_launches}")
+                total.update(line["msda_launches"])
+                per_image.append(line["infer_s"])
+                batch, size = clip_demo.pseudo_clip(pipe, rng, read_image(path),
+                                                    cfg.INPUT.SAMPLING_FRAME_NUM)
+                want = meta.inference_image(trainer.model, trainer.inf_cfg, batch, size, CLIP_HW,
+                                            pixel_mean=tuple(cfg.MODEL.PIXEL_MEAN),
+                                            pixel_std=tuple(cfg.MODEL.PIXEL_STD),
+                                            device=DEMO_DEVICE)
+                saved = json.load(open(os.path.join(out_dir, f"{name}.json")))
+                got = {"scores": saved["scores"], "classes": saved["classes"],
+                       "boxes": np.asarray(saved["boxes"], np.float32).reshape(-1, 4),
+                       "masks": [rle.decode(m).astype(bool) for m in saved["masks"]]}
+                res = match_detections(got, want)
+                print(f"{name} ({'aug' if aug else 'no aug'}, {list(size)}): the demo's "
+                      f"{len(got['scores'])} detections against inference_image here; "
+                      f"max|score err|, min mask IoU {res}", flush=True)
+                if res is None or not got["scores"] or list(size) != line["size"]:
+                    fail(f"the clip demo's detections of {name} disagree with inference_image")
+    s_img = float(np.mean(per_image))
+    print(f"clip demo ({card}): {s_img:.4f} s/image (inference host s "
+          f"{[round(s, 4) for s in per_image]})", flush=True)
+    return dict(total), seen["fwd"], s_img
+
+
+def tracker_stream(seed):
+    """TRACK's clip stream, numpy: a persistent pool of instances (separated
+    boxes, distinct embeddings), each clip a random subset of it with noise
+    (tests/test_device_tracker.py's stream at full width). Yields
+    (frame_idx, scores, cls_probs, masks, embeds, valid, is_output,
+    is_last), windows as ``inference_vis`` closes them."""
+    K, T, (H, W), C, KC = TRACK["K"], TRACK["T"], TRACK["hw"], TRACK["C"], TRACK["classes"]
+    rng = np.random.default_rng(seed)
+    n_pool, cols = TRACK["pool"], 16
+    pool_embeds = rng.standard_normal((n_pool, C)).astype(np.float32)
+    pool_embeds *= 6.0 / np.linalg.norm(pool_embeds, axis=1, keepdims=True)
+    bh, bw = H // (n_pool // cols), W // cols
+    n_clips = TRACK["frames"] - T + 1
+    saved = 0
+    for ci in range(n_clips):
+        n = int(rng.integers(K // 2, K))
+        take = rng.choice(n_pool, size=n, replace=False)
+        masks = np.full((K, T, H, W), -8.0, np.float32)
+        embeds = np.zeros((K, C), np.float32)
+        for i, p in enumerate(take):
+            y, x = (p // cols) * bh, (p % cols) * bw
+            masks[i, :, y:y + bh - 1, x:x + bw - 1] = 8.0
+            masks[i] += rng.standard_normal((T, H, W)).astype(np.float32) * 0.2
+            embeds[i] = pool_embeds[p] + rng.standard_normal(C).astype(np.float32) * 0.05
+        scores = np.sort(rng.random(K).astype(np.float32))[::-1].copy()
+        cls_probs = rng.random((K, KC)).astype(np.float32)
+        last = ci == n_clips - 1
+        out = ci + 1 >= TRACK["window"] * (saved + 1)
+        saved += out and not last
+        yield (list(range(ci, ci + T)), scores, cls_probs, masks, embeds, np.arange(K) < n,
+               out, last)
+
+
+def host_tracker(card):
+    """The port's OverTracker with its mask memory on the card against the
+    device tracker (tracker_step / tracker_window_output) and against the
+    OverTracker on the CPU, on TRACK's stream: the same matched IDs every
+    clip; at every window output class averages within 1e-5 and equal packed
+    masks. Returns the host ms a clip of each."""
+    from mdqe_cvpr2023_tpu_torch.tracking import ClipResults, OverTracker
+    from mdqe_cvpr2023_tpu_torch.tracking import device_tracker as dt
+    M, hw = TRACK["M"], TRACK["hw"]
+    kw = dict(num_max_inst=M, num_frames=TRACK["T"], window_frames=TRACK["window"],
+              clip_stride=1, num_classes=TRACK["classes"], embed_dim=TRACK["C"],
+              apply_cls_thres=0.05)
+    dev = torch.device(DEMO_DEVICE)
+    host = {DEMO_DEVICE: OverTracker(**kw, mask_size=hw, device=dev),
+            "cpu": OverTracker(**kw, mask_size=hw, device="cpu")}
+    cfg = dt.TrackerCfg(**kw, mask_hw=hw)
+    state = dt.tracker_state_init(cfg, dev)
+    ori = (4 * hw[0], 4 * hw[1])
+    ms = collections.defaultdict(list)
+    windows = 0
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        r = fn()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        ms[name].append(1e3 * (time.perf_counter() - t0))
+        return r
+
+    t0 = time.perf_counter()
+    stream = list(tracker_stream(seed=0))
+    stream_s = time.perf_counter() - t0
+    for fidx, scores, probs, masks, embeds, valid, out, last in stream:
+        on_card = torch.from_numpy(masks).to(dev)
+        slots = {}
+        for d, tr in host.items():
+            clip = ClipResults(frame_idx=fidx, scores=scores, classes=np.zeros(len(scores)),
+                               cls_probs=probs, query_embeds=embeds, valid=valid,
+                               mask_logits=torch.from_numpy(masks) if d == "cpu" else on_card)
+            slots[d] = timed(f"OverTracker[{d}]", lambda: tr.update(clip))
+        f0, overlap = host["cpu"].clip_offsets(fidx)
+        args = [torch.from_numpy(a).to(dev) for a in (scores, probs)] + [on_card] + [
+            torch.from_numpy(a).to(dev) for a in (embeds, valid)]
+        ov = torch.from_numpy(overlap).to(dev)
+        state = timed("device_tracker", lambda: dt.tracker_step(state, cfg, *args, f0, ov))
+        dev_slots = state["slots"].cpu().numpy()
+        if not all(np.array_equal(s, dev_slots) for s in slots.values()):
+            fail(f"matched IDs differ at clip {fidx[0]}: OverTracker {slots}, device tracker "
+                 f"{dev_slots}")
+        if out or last:
+            res = {d: timed(f"window OverTracker[{d}]", functools.partial(
+                tr.get_result, is_last_clip=last, finalize_args=(4, ori, ori)))
+                for d, tr in host.items()}
+            cls_d, n, packed_d, state = timed("window device_tracker", lambda: (
+                dt.tracker_window_output(state, cfg, 4, ori, ori, last)))
+            n = int(n)
+            cls_c, packed_c, _ = res[DEMO_DEVICE]
+            errs = [float(np.abs(cls_d.cpu().numpy()[:n] - cls_c).max()),
+                    float(np.abs(res["cpu"][0] - cls_c).max())]
+            same = [torch.equal(packed_d.cpu(), packed_c.cpu()),
+                    torch.equal(res["cpu"][1], packed_c.cpu())]
+            print(f"window {windows}: {n} instances; class averages of the device tracker and "
+                  f"of the CPU OverTracker against the card's: max|err| {errs}; packed masks "
+                  f"{tuple(packed_c.shape)} equal {same}", flush=True)
+            if n != cls_c.shape[0] or max(errs) > 1e-5 or not all(same):
+                fail("the trackers' window outputs disagree")
+            windows += 1
+    n_inst = host[DEMO_DEVICE].num_inst
+    print(f"host tracker ({card}): {len(ms['device_tracker'])} clips, {windows} windows, "
+          f"{n_inst} of {M} instances; host ms a clip, mean (median): "
+          + ", ".join(f"{k} {np.mean(v):.3f} ({np.median(v):.3f})" for k, v in ms.items()
+                      if not k.startswith("window"))
+          + "; ms a window output, mean: "
+          + ", ".join(f"{k[7:]} {np.mean(v):.3f}" for k, v in ms.items() if k.startswith("window"))
+          + f"; the stream (numpy) {stream_s:.3f} s", flush=True)
+    if windows != 2 or n_inst != M:
+        fail(f"the stream gave {windows} windows and {n_inst} instances, want 2 and {M}")
+    return {k: float(np.mean(v)) for k, v in ms.items() if not k.startswith("window")}
+
+
+def eval_parity_cli(argv):
+    """``tools/eval_parity.py``'s command line in this process; fails unless it
+    exits with 0. Returns what it printed."""
+    import io
+    from mdqe_cvpr2023_tpu_torch.tools import eval_parity
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        try:
+            eval_parity.main(argv)
+            code = None
+        except SystemExit as e:
+            code = e.code
+    if code != 0:
+        print(printed.getvalue()[-6000:], flush=True)
+        fail(f"eval_parity {argv[0]} exited with {code}")
+    print(f"eval_parity {argv[0]} took {time.perf_counter() - t0:.1f} s", flush=True)
+    return printed.getvalue()
+
+
+def tool_checks(card, tmp, trainer):
+    """The model tools: analyze_model (R50 at 4x384x640, Swin-L v2 at
+    2x384x640: ANALYZE_SIZE) on the card; ``eval_parity run`` on the synthetic OVIS dataset
+    under ``trainer.datasets_root`` and ``eval_parity diff`` of its results
+    against ``trainer.test``'s on the same weights (exit 0, every track
+    matched; both in this process); ``convert_weights inflate`` of a
+    checkpoint written here, loaded back by ``load_torch_checkpoint``."""
+    from mdqe_cvpr2023_tpu_torch.engine.checkpoint import load_torch_checkpoint
+    from mdqe_cvpr2023_tpu_torch.tools import analyze_model, convert_weights
+    for config in ("configs/R50_ovis_360.yaml", "configs/swinl_ovis.yaml"):
+        res = analyze_model.main(["--config-file", config, "--device", DEMO_DEVICE,
+                                  "--size", *ANALYZE_SIZE, *DEMO_OPTS])
+        f = res["flops"]
+        print(f"analyze_model {config} ({card}): {res['total']} parameters "
+              f"{json.dumps(res['groups'])}; {f['total'] / 1e9:.3f} GFLOP (counted "
+              f"{f['counted'] / 1e9:.3f} + sampling {f['sampling'] / 1e9:.3f})", flush=True)
+        if sum(res["groups"].values()) != res["total"] or not f["sampling"] > 0 \
+                or not f["counted"] > 0:
+            fail(f"analyze_model's counts of {config} do not add up")
+        torch.cuda.empty_cache()
+    out = os.path.join(tmp, "parity")
+    eval_parity_cli(["run", "--config", "configs/R50_ovis_360.yaml", "--dataset",
+                     "ytvis_ovis_dev", "--datasets-root", trainer.datasets_root, "--output", out,
+                     "--device", DEMO_DEVICE, *DEMO_OPTS])
+    _, preds = trainer.test("ytvis_ovis_dev")
+    report = eval_parity_cli([
+        "diff", os.path.join(out, "results_ytvis_ovis_dev.json"),
+        os.path.join(trainer.output_dir, "results_ytvis_ovis_dev.json"), "--gt",
+        os.path.join(trainer.datasets_root, "ovis", "valid_sub.json")])
+    print(report.strip(), flush=True)
+    if not preds or json.loads(report)["matched_tracks"] != len(preds):
+        fail(f"eval_parity diff matched {report} of {len(preds)} predictions")
+    ckpt = os.path.join(tmp, "r50.pth")
+    torch.save({"model": trainer.model.state_dict()}, ckpt)
+    frames = trainer.cfg.INPUT.SAMPLING_FRAME_NUM
+    path = convert_weights.main(["inflate", "--source", ckpt, "--num-frames", str(2 * frames),
+                                 "--pretrain-frames", str(frames)])
+    loaded = load_torch_checkpoint(path)
+    key = next(k for k in loaded if k.endswith("temp_attn_inst.attention_weights.weight"))
+    before = trainer.model.state_dict()[key].shape[0]
+    print(f"convert_weights inflate: {len(loaded)} tensors loaded; {key} {before} -> "
+          f"{loaded[key].shape[0]} rows", flush=True)
+    if loaded[key].shape[0] != 2 * before:
+        fail(f"the inflated checkpoint's temporal weights did not grow from {frames} to "
+             f"{2 * frames} frames")
+
+
+def demo_paths(da, card, vis_timings, vis_err):
+    """Phase 6e: the video and clip demos, the host tracker, the model tools,
+    then the kernel at the demos' call shapes against its plain version and
+    timed; a site whose one call shape is phase 4's VIS_SITES shape keeps
+    phase 3's error and phase 4's timing (``vis_err``, ``vis_timings``).
+    Returns the kernels-line entries ``[<site>,demo]`` and
+    ``[<site>,clip_demo]``."""
+    tmp = tempfile.mkdtemp(prefix="mdqe_demo_")
+    t0 = time.perf_counter()
+
+    def took(what):
+        print(f"{what}: {time.perf_counter() - t0:.1f} s into phase 6e", flush=True)
+
+    try:
+        write_ovis_dataset(tmp, DEMO_HW, train_frames=(), dev_frames=12, num_classes=25,
+                           seed=7)
+        phase(f"main path: the video demo ({card})")
+        vis_trainer = demo_trainer("configs/R50_ovis_360.yaml", tmp, datasets_root=tmp)
+        vis_launched, vis_seen, _ = video_demo(da, card, tmp, vis_trainer)
+        took("the video demo")
+        phase(f"main path: the clip demo ({card})")
+        coco_trainer = demo_trainer("configs/R50_coco.yaml", tmp)
+        clip_launched, clip_seen, _ = clip_demo_paths(da, card, tmp, coco_trainer)
+        del coco_trainer
+        torch.cuda.empty_cache()
+        took("the clip demo")
+        phase(f"the host OverTracker on the card against the device tracker ({card})")
+        host_tracker(card)
+        took("the host tracker")
+        phase(f"the model tools ({card})")
+        tool_checks(card, tmp, vis_trainer)
+        del vis_trainer
+        torch.cuda.empty_cache()
+        took("the model tools")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    phase(f"kernels at the demos' call shapes ({card})")
+    entries = []
+    for path, seen, launched in (("demo", vis_seen, vis_launched),
+                                 ("clip_demo", clip_seen, clip_launched)):
+        timed_before = {site for site, keys in seen.items()
+                        if path == "demo" and site in VIS_SITES and set(keys) == {vis_key(site)}}
+        errs, timings = swin_fwd_sites(
+            da, path, {k: v for k, v in seen.items() if k not in timed_before}, card)
+        for site in sorted(timed_before):
+            errs[site], timings[site] = vis_err[site], vis_timings[site]
+            print(f"{path} fwd {site}: {seen[site][vis_key(site)]} launches at phase 4's "
+                  f"{site} shape: its check and timing are this entry's", flush=True)
+        for site, t in timings.items():
+            line = 569 if site == "encoder" else 121
+            entries.append(kernel_entry(f"ms_deform_attn_fwd[{site},{path}]", SOURCE,
+                                        f"{PALLAS}:{line}", launched[site], errs[site], t))
+    took("the kernels")
+    return entries
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a CUDA card")
@@ -2708,6 +3242,9 @@ def main():
     ddp_kernel_entries = ddp_entries(da, card, ddp_launches, trainer_ddp_launches, vis,
                                      timings, max_err)
 
+    # ---- 6e. the demos, the host tracker and the model tools -------------------------
+    demo_kernel_entries = demo_paths(da, card, timings, max_err)
+
     # ---- 7. the kernel tools ------------------------------------------------------
     phase(f"main path: the kernel tools' sweeps ({card})")
     tune_rows, probe_rows, tc_rows, tc_launches = tool_paths(da, tdk, pbp, pmk)
@@ -2754,6 +3291,7 @@ def main():
                                     f"{PALLAS}:{line}", coco_launches[site], coco_err[site], t))
     kernels += swin_entries
     kernels += ddp_kernel_entries
+    kernels += demo_kernel_entries
     for r in tune_rows:  # each level's own launches and error
         key = f"{r['value']}_t{r['threads']}"
         kernels.append(kernel_entry(f"ms_deform_attn_fwd[tune,{r['level']},{key}]", SOURCE,

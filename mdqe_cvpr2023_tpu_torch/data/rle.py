@@ -145,11 +145,9 @@ def decode(rle: Dict) -> np.ndarray:
     """{'size', 'counts'} -> (H, W) uint8 mask."""
     H, W = rle["size"]
     counts = _counts(rle)
+    runs = np.repeat((np.arange(len(counts)) % 2).astype(np.uint8), counts)  # odd: foreground
     flat = np.zeros(H * W, np.uint8)
-    ends = np.cumsum(counts)
-    starts = ends - counts
-    for i in range(1, len(counts), 2):  # odd runs are foreground
-        flat[starts[i]:ends[i]] = 1
+    flat[:runs.size] = runs[:H * W]  # counts that miss or pass H * W, as the JAX codec
     return flat.reshape(H, W, order="F")
 
 
@@ -165,19 +163,18 @@ def area(rle: Dict) -> int:
 
 
 def _interval_intersection(s1, e1, s2, e2) -> int:
-    """Total overlap length of two sorted disjoint interval lists."""
+    """Total overlap length of two sorted disjoint lists of half-open
+    intervals, by one sweep over their sorted end points: between two
+    consecutive points the coverage is the running sum of +1 (start) and -1
+    (end), and the overlap is where it is 2."""
     if len(s1) == 0 or len(s2) == 0:
         return 0
-    # for each interval in 1, the candidates in 2 via searchsorted
-    lo = np.searchsorted(e2, s1, side="right")
-    hi = np.searchsorted(s2, e1, side="left")
-    total = 0
-    for i in range(len(s1)):
-        a, b = lo[i], hi[i]
-        if a >= b:
-            continue
-        total += np.minimum(e2[a:b], e1[i]).sum() - np.maximum(s2[a:b], s1[i]).sum()
-    return int(total)
+    pos = np.concatenate([s1, e1, s2, e2])
+    step = np.concatenate([np.ones(len(s1), np.int64), -np.ones(len(e1), np.int64),
+                           np.ones(len(s2), np.int64), -np.ones(len(e2), np.int64)])
+    order = np.argsort(pos, kind="stable")
+    pos, cover = pos[order], np.cumsum(step[order])
+    return int(np.diff(pos)[cover[:-1] == 2].sum())
 
 
 def intersection_area(rle1: Dict, rle2: Dict) -> int:

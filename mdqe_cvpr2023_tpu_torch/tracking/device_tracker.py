@@ -13,7 +13,8 @@ import numpy as np
 import torch
 
 from ..ops.hungarian import lsa_maximize
-from .mask_memory import finalize_from_avg, mem_average, mem_siou, mem_update
+from .mask_memory import (mem_average, mem_finalize_masks, mem_init, mem_siou,
+                          mem_update, rollover_from_avg)
 
 
 @dataclass(frozen=True)
@@ -58,11 +59,12 @@ def tracker_state_init(cfg: TrackerCfg, device):
     M = cfg.num_max_inst
     H, W = cfg.mask_hw
     f32 = dict(dtype=torch.float32, device=device)
+    # mask memory (running sums; row M is the dump row of unmatched detections)
+    logit_sum, valid_count, clip_count_mem = mem_init(M + 1, cfg.mem_length, H, W, device)
     return {
-        # mask memory (running sums; row M is the dump row of unmatched detections)
-        "logit_sum": torch.zeros((M + 1, cfg.mem_length, H, W), **f32),
-        "valid_count": torch.zeros((M + 1, cfg.mem_length), **f32),
-        "clip_count_mem": torch.zeros((M + 1,), **f32),
+        "logit_sum": logit_sum,
+        "valid_count": valid_count,
+        "clip_count_mem": clip_count_mem,
         "embeds_mem": torch.zeros((M, cfg.embed_dim), **f32),
         "untracked": torch.zeros((M,), **f32),
         "ring_embeds": torch.zeros((cfg.ring, M, cfg.embed_dim), **f32),
@@ -109,7 +111,8 @@ def tracker_step(state, cfg: TrackerCfg, scores, cls_probs, masks, embeds, valid
     """One clip's association and memory update. scores (K,), cls_probs
     (K, Kc), masks (K, T, h, w) logits, embeds (K, C), valid (K,) bool, f0 the
     memory offset of the clip's first frame, overlap (T,) bool. The mask memory
-    is updated in place; the returned dict is the new state."""
+    is updated in place; the returned dict is the new state, with ``slots``
+    (K,): each detection's instance row (M for none) in this clip."""
     M = cfg.num_max_inst
     K = scores.shape[0]
     dev = scores.device
@@ -200,7 +203,7 @@ def tracker_step(state, cfg: TrackerCfg, scores, cls_probs, masks, embeds, valid
     return dict(state, embeds_mem=embeds_mem, untracked=untracked,
                 ring_embeds=ring_embeds, ring_valid=ring_valid, cls_sum=cls_sum,
                 clip_count=clip_count, num_inst=num_inst + n_new,
-                num_clip=state["num_clip"] + 1)
+                num_clip=state["num_clip"] + 1, slots=slots)
 
 
 def tracker_window_average(state, cfg: TrackerCfg, is_last: bool):
@@ -228,12 +231,8 @@ def tracker_window_average(state, cfg: TrackerCfg, is_last: bool):
         return out_cls, num_inst, avg, state
 
     W = cfg.window_frames
-    roll = state["logit_sum"].shape[1] - W
-    new_ls = torch.zeros_like(state["logit_sum"])
-    new_ls[:, :roll] = avg[:, W:]
-    new_vc = torch.zeros_like(state["valid_count"])
-    new_vc[:, :roll] = (state["valid_count"][:, W:] > 0).float()
-    new_cc = (state["clip_count_mem"] > 0).float()
+    new_ls, new_vc, new_cc = rollover_from_avg(avg, state["valid_count"],
+                                               state["clip_count_mem"], W)
 
     # a row carries its class average and embedding into the next window only
     # when it has valid residual frames (the reference weights the rolled slot
@@ -259,7 +258,5 @@ def tracker_window_output(state, cfg: TrackerCfg, match_stride: int, image_size,
     """Average + finalize of every row in one call (inference_vis finalizes
     lazily per chunk of live rows instead)."""
     out_cls, num_inst, avg, new_state = tracker_window_average(state, cfg, is_last)
-    packed = torch.cat([finalize_from_avg(avg[c:c + chunk], match_stride,
-                                          image_size, ori_size)
-                        for c in range(0, avg.shape[0], chunk)])
+    packed = mem_finalize_masks(avg, match_stride, image_size, ori_size, chunk)
     return out_cls, num_inst, packed, new_state

@@ -5,13 +5,24 @@ bit-packed binary masks. Binarization is logit > 0 (== sigmoid > 0.5), which
 commutes with the final nearest resize.
 
 Unlike the JAX versions, ``mem_update`` adds into the memory in place (the JAX
-package donates the buffers to the same effect).
+package donates the buffers to the same effect). The memory lives on the
+device its caller allocates it on (``mem_init``); every function here works
+on that device.
 """
 from __future__ import annotations
 
 import torch
 
 from ..utils.misc import aligned_bilinear, interpolate_nearest
+
+
+def mem_init(m1: int, mem_length: int, h: int, w: int, device):
+    """The zeroed mask memory on ``device``: logit sums (m1, L, h, w), valid
+    frame counts (m1, L) and matched-clip counts (m1,), all float32."""
+    f32 = dict(dtype=torch.float32, device=device)
+    return (torch.zeros((m1, mem_length, h, w), **f32),
+            torch.zeros((m1, mem_length), **f32),
+            torch.zeros((m1,), **f32))
 
 
 def mem_update(logit_sum, valid_count, clip_count, masks, slots, f0: int):
@@ -56,6 +67,26 @@ def mem_average(logit_sum, valid_count):
     return logit_sum / valid_count.clamp(min=1.0)[:, :, None, None]
 
 
+def rollover_from_avg(avg, valid_count, clip_count, window_frames: int):
+    """The memory of the next window from this one's averages: the residual
+    frames (beyond the window) move to the front and re-enter with count 1
+    (they hold averaged logits); every existing instance restarts at clip
+    count 1."""
+    roll = avg.shape[1] - window_frames
+    new_ls = torch.zeros_like(avg)
+    new_ls[:, :roll] = avg[:, window_frames:]
+    new_vc = torch.zeros_like(valid_count)
+    new_vc[:, :roll] = (valid_count[:, window_frames:] > 0).to(valid_count.dtype)
+    return new_ls, new_vc, (clip_count > 0).to(clip_count.dtype)
+
+
+def mem_rollover(logit_sum, valid_count, clip_count, window_frames: int):
+    """Roll the memory over to the next window (new tensors; the reference's
+    OverTracker.py:216-223)."""
+    return rollover_from_avg(mem_average(logit_sum, valid_count), valid_count,
+                             clip_count, window_frames)
+
+
 def packbits(x_bool):
     """(..., W) bool -> (..., ceil(W/8)) uint8, big-endian bit order."""
     W = x_bool.shape[-1]
@@ -76,3 +107,26 @@ def finalize_from_avg(avg_logits, match_stride: int, image_size, ori_size):
     up = aligned_bilinear(avg_logits, match_stride)
     up = up[:, :, :image_size[0], :image_size[1]]
     return packbits(interpolate_nearest(up > 0, ori_size))
+
+
+def mem_finalize_masks(avg_logits, match_stride: int, image_size, ori_size,
+                       inst_chunk: int = 8):
+    """``finalize_from_avg`` of every row, ``inst_chunk`` rows at a time to
+    bound the full-resolution intermediate."""
+    return torch.cat([finalize_from_avg(avg_logits[c:c + inst_chunk], match_stride,
+                                        image_size, ori_size)
+                      for c in range(0, avg_logits.shape[0], inst_chunk)])
+
+
+def mem_window_output(logit_sum, valid_count, clip_count, window_frames: int,
+                      match_stride: int, image_size, ori_size, rollover: bool,
+                      inst_chunk: int = 8):
+    """A window's output in one call: average, finalize every row and, with
+    ``rollover``, roll the memory over. Returns (packed masks (M1, L, oh,
+    ceil(ow/8)) uint8 over the full memory length, and the memory: the next
+    window's, or the given tensors unchanged)."""
+    avg = mem_average(logit_sum, valid_count)
+    packed = mem_finalize_masks(avg, match_stride, image_size, ori_size, inst_chunk)
+    if rollover:
+        return (packed, *rollover_from_avg(avg, valid_count, clip_count, window_frames))
+    return packed, logit_sum, valid_count, clip_count

@@ -69,6 +69,22 @@ def test_codecs_agree_on_random_masks():
         np.testing.assert_array_equal(trle.string_to_counts(s), trle.string_to_counts_py(s))
 
 
+def test_intersection_area_matches_jax_on_noise_and_edge_masks():
+    """The sweep over interval end points against JAX's per-interval loop:
+    pixel noise (thousands of runs), full, empty and one-pixel masks."""
+    rng = np.random.default_rng(2)
+    masks = [rng.random((37, 53)) < p for p in (0.1, 0.5, 0.9)]
+    masks += [np.ones((37, 53), bool), np.zeros((37, 53), bool)]
+    one = np.zeros((37, 53), bool)
+    one[36, 52] = True
+    masks.append(one)
+    for a in masks:
+        for b in masks:
+            ra, rb = trle.encode(a), trle.encode(b)
+            got = trle.intersection_area(ra, rb)
+            assert got == jrle.intersection_area(ra, rb) == (a & b).sum()
+
+
 def test_rle_ops_match_jax(codec):
     rng = np.random.default_rng(1)
     for _ in range(12):
