@@ -7,8 +7,9 @@ Phases (each exits non-zero on failure; none is caught and continued):
      nvcc per source started together (ms_deform_attn.cu, tc_kdepth.cu),
      print ptxas's register / shared-memory / spill report, and check that
      tc_kdepth's SASS holds wgmma (HGMMA) and no mma.sync (HMMA) and that the
-     backward kernel's d(value) scatter is 16-byte vector reductions
-     (REDG ... F32x4) and nothing else;
+     backward kernels' global atomics are 16-byte vector reductions
+     (REDG ... F32x4) and nothing else, with no bf16 atomic and no
+     compare-and-swap loop in msda_bwd_bf16;
   3. the forward kernel against its plain PyTorch version at every call shape
      of the inference path (encoder, decoder box level, decoder temporal) and
      at odd shapes; the backward kernel against autograd of the plain version,
@@ -53,7 +54,9 @@ Phases (each exits non-zero on failure; none is caught and continued):
   6a. mixed precision (SOLVER.AMP.ENABLED): the bf16 kernels at the R50
      training call shapes (msda_fwd_bf16 against its plain version,
      msda_bwd_bf16 against autograd of the plain version on f64 copies of the
-     same bf16 inputs, and no worse than the plain version in bf16), timed
+     same bf16 inputs, and no worse than the plain version in bf16; also at
+     odd shapes, Q == N levels cut by its query tiles and a crowded input
+     whose rows sum tens of thousands of taps), timed
      beside msda_bwd_f32, the plain version, the grid_sample form and the
      bound; the AMP training step at full width (s/step, peak memory, 6 / 6 /
      24 launches a step of the forward and msda_bwd_bf16 and none of
@@ -115,8 +118,9 @@ Usage: python3 chip_smoke.py   (needs one CUDA card; runs from the checkout)
        python3 chip_smoke.py --kernel-times   (only the kernels' times at every
        forward site, the backward's training sites and every tc_kdepth shape,
        one JSON line each; see kernel_times)
-       python3 chip_smoke.py --bwd-split [SOURCE]   (the backward kernel's time
-       split into its d(value) scatter and the rest; see bwd_split)
+       python3 chip_smoke.py --bwd-split [SOURCE]   (the backward kernels' time
+       split into their d(value) scatter and the rest, msda_bwd_bf16's
+       reductions counted; see bwd_split)
 """
 import collections
 import contextlib
@@ -145,6 +149,7 @@ ENC_SHAPES = ((48, 80), (24, 40), (12, 20), (6, 10))  # 384x640 padded frames
 TRAIN_SHAPES = ((64, 100), (32, 50), (16, 25), (8, 13))  # 512x800 padded frames
 COCO_SHAPES = ((100, 152), (50, 76), (25, 38), (13, 19))  # 800x1216 padded image
 COCO_N = sum(h * w for h, w in COCO_SHAPES)               # 20197 encoder tokens
+SWIN_TRAIN_SHAPES = ((92, 128), (46, 64), (23, 32), (12, 16))  # 736x1024 padded frames
 PALLAS = "mdqe_cvpr2023_tpu/ops/deform_attn_pallas.py"
 SOURCE = "mdqe_cvpr2023_tpu_torch/ops/csrc/ms_deform_attn.cu"
 TC_SOURCE = "mdqe_cvpr2023_tpu_torch/ops/csrc/tc_kdepth.cu"
@@ -219,6 +224,31 @@ BWD_REPLACES = f"{PALLAS}:225,278,768,789"  # _bwd_sample/_bwd_value, banded pai
 # msda_bwd_bf16 replaces the pair the AMP step reaches on the TPU (the
 # training encoder passes allow_banded=False): _bwd_sample / _bwd_value
 BWD_BF16_REPLACES = f"{PALLAS}:225,278"
+
+
+# msda_bwd_bf16's timed call shapes (``--kernel-times``, ``--bwd-split``):
+# the AMP step's sites, R50 and Swin-L, and one DDP rank's (one clip): path,
+# site, B, Q, level shapes; H 8, D 32, P 4 as in BWD_CHECKS
+BWD_BF16_SITES = [
+    ("train_amp", "encoder", 8, 8504, TRAIN_SHAPES),
+    ("train_amp", "decoder_box", 8, 196, TRAIN_SHAPES),
+    ("train_amp", "decoder_inst", 2, 196, ((64, 100),) * 4),
+    ("swinl_train_amp", "encoder", 4, 15648, SWIN_TRAIN_SHAPES),
+    ("swinl_train_amp", "decoder_box", 4, 196, SWIN_TRAIN_SHAPES),
+    *(("swinl_train_amp", "decoder_inst", 2, 196, ((h, w),) * 2) for h, w in SWIN_TRAIN_SHAPES),
+    ("ddp_amp", "encoder", 4, 8504, TRAIN_SHAPES),
+    ("ddp_amp", "decoder_box", 4, 196, TRAIN_SHAPES),
+    ("ddp_amp", "decoder_inst", 1, 196, ((64, 100),) * 4),
+]
+
+
+def bf16_site_inputs(k, site, B, Q, shapes):
+    """bf16 value, locations (encoder-like at the encoder, uniform at the
+    decoder sites), weights and fp32 output gradient of row k of
+    BWD_BF16_SITES."""
+    v, lo, aw, gout = bwd_inputs(torch, B, Q, 8, 32, 4, shapes,
+                                 "local" if site == "encoder" else "uniform", seed=800 + k)
+    return v.bfloat16(), lo, aw, gout
 
 
 def bwd_inputs(torch, B, Q, H, D, P, shapes, mode, seed):
@@ -918,27 +948,39 @@ def sass_lines(_build, name):
 
 
 def check_vector_red(_build):
-    """msda_bwd_f32 and msda_bwd_bf16 must scatter d(value) with 16-byte
-    vector reductions (red.global.add.v4.f32; bf16 too sums into fp32): the
-    library's SASS holds REDG ... F32x4 instructions and no other global
-    reduction or atomic (no bf16 atomics)."""
+    """The backward kernels' global atomics: msda_bwd_f32 scatters d(value)
+    with 16-byte vector reductions (REDG.E.ADD.F32x4) alone; msda_bwd_bf16
+    sums in fp32 too, its merged rows by the same reductions (its tiled
+    kernel; its decoder kernels send none), and holds no bf16 global atomic
+    and no compare-and-swap loop (ATOMS.CAS / ATOMS.CAST.SPIN, ATOMG ... CAS:
+    fp32 atomics on shared memory compile to one on this card); its merge
+    takes shared-memory integer atomics (ATOMS.ADD, ATOMS.MIN). The library
+    holds no other global reduction or atomic."""
     lines = sass_lines(_build, "ms_deform_attn")
-    red = [ln for ln in lines if "REDG" in ln or "ATOMG" in ln]
-    vec = sum("F32x4" in ln for ln in red)
-    # per value type of the backward kernel's instantiations (mangled names:
-    # msda_bwd_kernelIf... for fp32, msda_bwd_kernelI13__nv_bfloat16... for bf16)
-    per_type, fn = {"f32": 0, "bf16": 0}, None
+    per_kind = {"f32": collections.Counter(), "bf16": collections.Counter()}
+    other, fn = [], None
     for ln in lines:
         if "Function :" in ln:
-            fn = ("bf16" if "msda_bwd_kernelI13__nv_bfloat16" in ln else
+            fn = ("bf16" if "msda_bwd_bf16" in ln else
                   "f32" if "msda_bwd_kernelIf" in ln else None)
-        elif fn and "REDG" in ln and "F32x4" in ln:
-            per_type[fn] += 1
-    print(f"ms_deform_attn SASS: {vec} 16-byte vector reductions (REDG.E.ADD.F32x4; "
-          f"msda_bwd_f32's kernels {per_type['f32']}, msda_bwd_bf16's {per_type['bf16']}), "
-          f"{len(red) - vec} other global atomics", flush=True)
-    if vec == 0 or len(red) != vec or 0 in per_type.values():
-        fail("the backward kernels do not scatter d(value) with vector reductions alone")
+            continue
+        ops = [w for w in ln.replace(";", " ").split() if w.startswith(("REDG", "ATOMG",
+                                                                        "ATOMS", "ATOM.",
+                                                                        "RED."))]
+        for op in ops:
+            vec = op.startswith("REDG") and "ADD.F32x4" in op
+            cas = "CAS" in op or "SPIN" in op
+            if fn:
+                per_kind[fn][op] += 1
+            if cas or (op.startswith(("REDG", "ATOMG", "ATOM.", "RED.")) and not vec):
+                other.append((fn, op))
+    vec = {k: sum(n for op, n in c.items() if op.startswith("REDG")) for k, c in per_kind.items()}
+    print(f"ms_deform_attn SASS: msda_bwd_f32's kernels {dict(per_kind['f32'])}, "
+          f"msda_bwd_bf16's {dict(per_kind['bf16'])}; other global atomics or CAS "
+          f"{collections.Counter(other)}", flush=True)
+    if other or not vec["f32"] or not vec["bf16"]:
+        fail("the backward kernels' atomics are not 16-byte vector reductions alone, with "
+             "shared integer atomics in msda_bwd_bf16's merge and no CAS loop")
 
 
 def check_wgmma(_build):
@@ -1359,7 +1401,9 @@ def kernel_times():
     events, wrapper included, and from a CUDA-graph replay; and by graph
     replay at every block size of ``msda_fwd_*_block``), the backward kernel
     at the training step's three sites (eager, the wrapper's zeroed d(value)
-    included, and graph replay) and tc_kdepth at every (K, N) of the depth
+    included, and graph replay), msda_bwd_bf16 at BWD_BF16_SITES (eager,
+    graph replay, msda_bwd_f32 on the fp32 upcast by graph replay, and the
+    bound) and tc_kdepth at every (K, N) of the depth
     sweep (graph replay). It calls only wrappers that
     every checkout of the port has, so a copy of this script placed in another
     checkout (the parent commit's) times that checkout's kernels on the same
@@ -1389,6 +1433,20 @@ def kernel_times():
         print(json.dumps({"kernel": "msda_bwd", "site": f"train_{site}", "eager_ms": eager,
                           "graph_ms": graph, "card": card}), flush=True)
         del v, lo, aw, gout
+    for k, (path, site, B, Q, shapes) in enumerate(BWD_BF16_SITES):
+        vb, lo, aw, gout = bf16_site_inputs(k, site, B, Q, shapes)
+        eager = measure.time_ms(lambda: da.ms_deform_attn_bwd_cuda(vb, shapes, lo, aw, gout), 20)
+        graph = measure.graph_ms(lambda: da.ms_deform_attn_bwd_cuda(vb, shapes, lo, aw, gout),
+                                 20)
+        v32 = vb.float()
+        f32_graph = measure.graph_ms(
+            lambda: da.ms_deform_attn_bwd_cuda(v32, shapes, lo, aw, gout), 20)
+        bound_ms, bound_by, _, _ = measure.msda_bwd_bound(vb, shapes, lo, aw)
+        print(json.dumps({"kernel": "msda_bwd_bf16", "site": f"{path}_{site}",
+                          "B": B, "Q": Q, "shapes": shapes[0], "eager_ms": eager,
+                          "graph_ms": graph, "f32_upcast_graph_ms": f32_graph,
+                          "bound_ms": bound_ms, "bound_by": bound_by, "card": card}), flush=True)
+        del vb, v32, lo, aw, gout
     for N in pmk.NS:
         for K in pmk.KS:
             a, b = pmk.operands(K, N)
@@ -1397,25 +1455,56 @@ def kernel_times():
                               "card": card}), flush=True)
 
 
-# The backward kernel's d(value) scatter as it stands in the source, and what
+# The backward kernels' d(value) scatter as it stands in the source, and what
 # ``--bwd-split`` puts in its place: plain stores (a wrong result; time only)
-# and nothing. One entry per design: the vector reductions, and the earlier
-# lane-per-channel fp32 atomics, so that an older checkout's source splits too.
+# and nothing. One entry per design: the vector reductions (msda_bwd_f32,
+# and msda_bwd_bf16 while it shared its template), the earlier
+# lane-per-channel fp32 atomics, so that an older checkout's source splits
+# too, and msda_bwd_bf16's merged rows.
 SCATTERS = (
     ('asm volatile("red.global.add.v4.f32 [%0]', 'asm volatile("st.global.v4.f32 [%0]',
      'if (0) asm volatile("red.global.add.v4.f32 [%0]'),
     ("atomicAdd(grow + d, wc * g[k]);", "grow[d] = wc * g[k];", ";"),
+    ('asm volatile("red.relaxed.gpu.global.add.v4.f32 [%0]',
+     'asm volatile("st.global.v4.f32 [%0]',
+     'if (0) asm volatile("red.relaxed.gpu.global.add.v4.f32 [%0]'),
 )
+# msda_bwd_bf16's query tile and merge window as the source sets them, and the
+# alternatives ``--bwd-split`` also times: name: (query tile, replacements in
+# the source); the first is counted too (PERF.md records the choice)
+BF16_TILE_TEXT = "constexpr int kTileH = 4;\nconstexpr int kTileW = 8;\nconstexpr int kRoundP = 4;\n" \
+                 "constexpr int kWindow = 512;"
+BF16_VARIANTS = {
+    "tile8x16": ((8, 16), {"kTileH = 4;": "kTileH = 8;", "kTileW = 8;": "kTileW = 16;"}),
+    "tile8x8": ((8, 8), {"kTileH = 4;": "kTileH = 8;"}),
+    "tile2x16": ((2, 16), {"kTileH = 4;": "kTileH = 2;", "kTileW = 8;": "kTileW = 16;"}),
+    "window256": ((4, 8), {"kWindow = 512;": "kWindow = 256;"}),
+    "slots8": ((4, 8), {"kSlots = 4 * kRoundTaps;": "kSlots = 8 * kRoundTaps;"}),
+}
+# the entry point since msda_bwd_bf16 took its own kernels (an fp32 scratch, the
+# Q == N flag and the block count); older sources take an fp32 d(value)
+BF16_ENTRY = "return launch_bwd_bf16("
+
+
+def n_tiles(shapes, tile):
+    return sum(-(-h // tile[0]) * -(-w // tile[1]) for h, w in shapes)
 
 
 def bwd_split(source):
-    """``--bwd-split [SOURCE]``: the backward kernel's time split into its
-    d(value) scatter and the rest. Builds three libraries from SOURCE (by
-    default this checkout's ms_deform_attn.cu; another checkout's copy splits
-    that one's kernel): as it is, with the scatter's atomics turned into
-    plain stores, and without the scatter; times ``msda_bwd_f32`` of each by
-    CUDA-graph replay at the training step's three sites, in turns (A, B, C,
-    C, B, A); one JSON line per site."""
+    """``--bwd-split [SOURCE]``: the backward kernels' time split into their
+    d(value) scatter and the rest. Builds libraries from SOURCE (by default
+    this checkout's ms_deform_attn.cu; another checkout's copy splits that
+    one's kernels): as it is, with the scatters' atomics turned into plain
+    stores, and without the scatters; from a source with msda_bwd_bf16's own
+    kernels also its BF16_VARIANTS (other query tiles, merge window, slots)
+    and two debug builds (-DMSDA_COUNT_REDS, its own tile and the first
+    variant's) that count its vector reductions.
+    Times ``msda_bwd_f32`` at the training step's three sites and
+    ``msda_bwd_bf16`` at its AMP sites (BWD_BF16_SITES) by CUDA-graph
+    replay, the variants in turns (A, B, C, C, B, A); one JSON line per site,
+    with the reductions counted at the Q == N sites beside their model
+    (measure.msda_bf16_reds) and the one per 4 channels of every tap that
+    msda_bwd_f32 sends."""
     import ctypes
     import tempfile
     from pathlib import Path
@@ -1426,42 +1515,109 @@ def bwd_split(source):
     found = [sc for sc in SCATTERS if sc[0] in src]
     if not found:
         fail(f"{path} holds no d(value) scatter that --bwd-split knows")
-    scatter, stores, nothing = found[0]
+    own_bf16 = BF16_ENTRY in src
+    if own_bf16 and BF16_TILE_TEXT not in src:
+        fail(f"{path}: msda_bwd_bf16's tile constants are not as BF16_TILE_TEXT has them")
+    def variant(changes):
+        text = src
+        for old, new in changes.items():
+            text = text.replace(old, new)
+        return text
+
+    variants = {"kernel": (src, []), "stores": (src, []), "no_scatter": (src, [])}
+    for sc, stores, nothing in found:
+        variants["stores"] = (variants["stores"][0].replace(sc, stores), [])
+        variants["no_scatter"] = (variants["no_scatter"][0].replace(sc, nothing), [])
+    tiles = {name: da.BF16_TILE for name in variants}
+    if own_bf16:
+        first = next(iter(BF16_VARIANTS))
+        for name, (tile, changes) in BF16_VARIANTS.items():
+            variants[name], tiles[name] = (variant(changes), []), tile
+        variants["count"], tiles["count"] = (src, ["-DMSDA_COUNT_REDS"]), da.BF16_TILE
+        variants[f"count_{first}"] = (variant(BF16_VARIANTS[first][1]), ["-DMSDA_COUNT_REDS"])
+        tiles[f"count_{first}"] = BF16_VARIANTS[first][0]
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     out = Path(tempfile.mkdtemp(prefix="bwd_split_", dir=_build.BUILD_DIR))
     procs = {}
-    for name, text in (("kernel", src), ("stores", src.replace(scatter, stores)),
-                       ("no_scatter", src.replace(scatter, nothing))):
+    for name, (text, flags) in variants.items():
         (out / f"{name}.cu").write_text(text)
         procs[name] = subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out / f"{name}.so"),
+            [_build._nvcc(), *_build.NVCC_FLAGS, *flags, "-o", str(out / f"{name}.so"),
              str(out / f"{name}.cu")], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     libs = {}
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
     for name, proc in procs.items():
         _, err = proc.communicate()
         if proc.returncode != 0:
             fail(f"nvcc failed for the {name} variant of {path}: {err[-2000:]}")
         libs[name] = ctypes.CDLL(str(out / f"{name}.so"))
-        libs[name].msda_bwd_f32.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [
-            ctypes.c_void_p]
+        libs[name].msda_bwd_f32.argtypes = [ptr] * 8 + [i32] * 7 + [ptr]
+        libs[name].msda_bwd_bf16.argtypes = ([ptr] * 9 + [i32] * 9 + [ptr] if own_bf16
+                                             else [ptr] * 8 + [i32] * 7 + [ptr])
+        if name.startswith("count"):
+            libs[name].msda_red_count_take.restype = ctypes.c_ulonglong
     card = measure.card()
+    stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
+
+    def check(err, fn):
+        if err:
+            fail(f"{fn} launch failed ({err})")
+
     for k, (site, B, Q, H, D, P, shapes, mode) in enumerate(BWD_CHECKS[:3]):
         v, lo, aw, gout = bwd_inputs(torch, B, Q, H, D, P, shapes, mode, seed=300 + k)
         meta = da._level_meta(tuple(shapes), str(v.device))
         gv, gl, ga = torch.zeros_like(v), torch.empty_like(lo), torch.empty_like(aw)
         ptrs = [t.data_ptr() for t in (v, meta, lo, aw, gout, gv, gl, ga)]
         dims = (B, v.shape[1], Q, H, D, len(shapes), P)
-
-        def launch(lib):
-            err = lib.msda_bwd_f32(*ptrs, *dims, torch.cuda.current_stream().cuda_stream)
-            if err:
-                fail(f"msda_bwd_f32 launch failed ({err})")
-        ms = {name: [] for name in libs}
-        for name in list(libs) + list(libs)[::-1]:
-            ms[name].append(measure.graph_ms(lambda: launch(libs[name]), 20))
+        names = [n for n in libs if n in ("kernel", "stores", "no_scatter")]
+        ms = {name: [] for name in names}
+        for name in names + names[::-1]:
+            ms[name].append(measure.graph_ms(
+                lambda: check(libs[name].msda_bwd_f32(*ptrs, *dims, stream()), "msda_bwd_f32"),
+                20))
         print(json.dumps({"kernel": "msda_bwd_split", "site": f"train_{site}", "graph_ms": ms,
                           "source": str(path), "card": card}), flush=True)
         del v, lo, aw, gout, gv, gl, ga
+    for k, (path_, site, B, Q, shapes) in enumerate(BWD_BF16_SITES):
+        vb, lo, aw, gout = bf16_site_inputs(k, site, B, Q, shapes)
+        H, D, P = vb.shape[2], vb.shape[3], lo.shape[4]
+        meta = da._level_meta(tuple(shapes), str(vb.device))
+        gl, ga = torch.empty_like(lo), torch.empty_like(aw)
+        dims = (B, vb.shape[1], Q, H, D, len(shapes), P)
+        tiled = Q == vb.shape[1]
+        if own_bf16:
+            gv = torch.empty_like(vb)
+            work = torch.empty(vb.shape, dtype=torch.float32, device=vb.device)  # either path
+            ptrs = [t.data_ptr() for t in (vb, meta, lo, aw, gout, gv, gl, ga, work)]
+
+            def launch(lib, tile):
+                blocks = (n_tiles(shapes, tile) if tiled
+                          else len(da.bwd_bf16_plan(tuple(shapes), False)))
+                check(lib.msda_bwd_bf16(*ptrs, *dims, int(tiled), blocks, stream()),
+                      "msda_bwd_bf16")
+        else:
+            gv = torch.zeros(vb.shape, dtype=torch.float32, device=vb.device)
+            ptrs = [t.data_ptr() for t in (vb, meta, lo, aw, gout, gv, gl, ga)]
+
+            def launch(lib, tile):
+                check(lib.msda_bwd_bf16(*ptrs, *dims, stream()), "msda_bwd_bf16")
+        names = [n for n in libs if not n.startswith("count")]
+        ms = {name: [] for name in names}
+        for name in names + names[::-1]:
+            ms[name].append(measure.graph_ms(lambda: launch(libs[name], tiles[name]), 20))
+        row = {"kernel": "msda_bwd_bf16_split", "site": f"{path_}_{site}",
+               "shapes": shapes[0], "graph_ms": ms}
+        if own_bf16 and tiled:
+            reds = {}
+            for name in (n for n in libs if n.startswith("count")):
+                libs[name].msda_red_count_take()
+                launch(libs[name], tiles[name])
+                reds[name] = int(libs[name].msda_red_count_take())
+                reds[f"model_{name[6:] or 'own'}"], reds["per_tap"] = measure.msda_bf16_reds(
+                    vb, shapes, lo, tiles[name])
+            row["reds"] = reds
+        print(json.dumps({**row, "source": str(path), "card": card}), flush=True)
+        del vb, lo, aw, gout, gv, gl, ga
 
 
 def vis_full_width(da, card, cfg, inf, n_frames, H, W, seed=0):
@@ -1732,21 +1888,92 @@ def swin_bwd_sites(da, seen, card, path="swinl_train"):
     return errs, timings
 
 
+def check_bwd_bf16(da, label, vb, shapes, lo, aw, gout):
+    """msda_bwd_bf16 (through its wrapper: the tiled kernel where Q == N)
+    against its oracle, autograd of the plain version on f64 copies of the
+    same bf16 value, locations, weights and output gradient, with the bounds
+    bf16_sites states; prints one line after ``label`` and fails on a
+    mismatch. Returns the largest error."""
+    got = da.ms_deform_attn_bwd_cuda(vb, shapes, lo, aw, gout)
+    _, _, plain = grads_of(torch, lambda a, b, c: da.ms_deform_attn_plain(a, shapes, b, c),
+                           vb, lo, aw, gout)
+    _, _, oracle = grads_of(
+        torch, lambda a, b, c: da.ms_deform_attn_plain(a, shapes, b, c),
+        vb.double(), lo.double(), aw.double(), gout.double())
+    torch.cuda.synchronize()
+    scale = float(oracle[0].abs().max())
+    err = float((got[0].double() - oracle[0]).abs().max())
+    err_plain = float((plain[0].double() - oracle[0]).abs().max())
+    ok = (got[0].dtype == torch.bfloat16 and err <= 2.0 ** -8 * scale
+          and err <= err_plain and bool(torch.isfinite(got[0]).all()))
+    msgs = [f"dvalue bf16 {err:.2e} (plain bf16 {err_plain:.2e}, tol {2.0 ** -8 * scale:.1e}"
+            f" and no larger than plain)"]
+    worst = err
+    for name, g, w, o in zip(("loc", "attw"), got[1:], plain[1:], oracle[1:]):
+        e = float((g - w).abs().max())
+        tol = 1e-4 * max(1.0, float(w.abs().max()))
+        msgs.append(f"d{name} {e:.2e} (tol {tol:.1e}; from f64 "
+                    f"{float((g.double() - o).abs().max()):.2e})")
+        ok = ok and e <= tol and bool(torch.isfinite(g).all())
+        worst = max(worst, e)
+    print(f"{label} max|err| {', '.join(msgs)} {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail(f"msda_bwd_bf16 disagrees with its oracle at {label}")
+    return worst
+
+
+# msda_bwd_bf16's other checks against its oracle: BWD_CHECKS' odd rows (the
+# decoder sites' kernels), Q == N problems whose levels are no multiple of the
+# 4x8 query tile (tail tiles; D = 16 / 48, odd P), and a crowded input:
+# name, B, H, D, P, level shapes, loc mode (Q == N unless the row gives Q)
+BWD_BF16_CASES = [
+    *((f"odd_q{Q}", B, H, D, P, shapes, mode, Q)
+      for site, B, Q, H, D, P, shapes, mode in BWD_CHECKS if site == "odd"),
+    ("tail_tiles", 2, 8, 32, 4, ((13, 21), (7, 11), (3, 5)), "local", None),
+    ("tail_tiles_d16_p3", 3, 3, 16, 3, ((10, 6), (7, 13), (3, 5)), "far", None),
+    ("tail_tiles_d48_p5", 2, 2, 48, 5, ((9, 4), (2, 11), (5, 9)), "local", None),
+    ("crowded", 2, 8, 32, 4, TRAIN_SHAPES, "crowded", None),
+]
+
+
+def bf16_cases(da):
+    """BWD_BF16_CASES through check_bwd_bf16. The crowded input: every query
+    of a level samples inside one 2x2 patch of it (the middle pixel and its
+    right and lower neighbours), so each of those rows sums Q * P taps of a
+    (b, head), 34016 at the training encoder's levels, about 10^4 and more."""
+    errs = {}
+    for k, (name, B, H, D, P, shapes, mode, Q) in enumerate(BWD_BF16_CASES):
+        Q = Q or sum(h * w for h, w in shapes)
+        v, lo, aw, gout = bwd_inputs(torch, B, Q, H, D, P, shapes,
+                                     "uniform" if mode == "crowded" else mode, seed=900 + k)
+        if mode == "crowded":
+            u = np.random.default_rng(950 + k).uniform(0.05, 0.95, tuple(lo.shape))
+            size = np.array([[w, h] for h, w in shapes], dtype=np.float64)  # (L, 2): x, y
+            mid = size // 2
+            lo = torch.from_numpy(((mid[:, None] + u + 0.5) / size[:, None]).astype(np.float32)
+                                  ).to(lo.device)
+        errs[name] = check_bwd_bf16(
+            da, f"bf16 case {name:18s} B={B} Q={Q} H={H} D={D} P={P} L={len(shapes)} {mode}:",
+            v.bfloat16(), shapes, lo, aw, gout)
+    return errs
+
+
 def bf16_sites(da, path, seen, card):
     """The kernels the AMP step runs, at every call shape ``seen`` ({site:
     Counter(key)}, keys as ``recorded_sites`` makes them) with a bf16 value:
     the forward (msda_fwd_bf16) against its plain version (1e-3, as at the
-    bf16 inference shapes) and msda_bwd_bf16 against its oracle, autograd of
-    the plain version on f64 copies of the same bf16 value, locations,
-    weights and output gradient. d(value): the kernel sums in fp32 and rounds
-    once, so its error must be within one bf16 step of the largest entry
-    (2^-8 of it) and no larger than the plain version's in bf16 (its index
-    backward sums in bf16). d(loc) and d(weights), fp32, against the plain
-    version on the same bf16 value (fp32 arithmetic that picks the kernel's
-    corners; the f64 oracle picks others where a location's product sits on
-    a pixel boundary, and its distance is printed), 1e-4 of the largest entry
-    as for fp32. Each timed (CUDA events, wrapper included: for the backward
-    its zeroed fp32 d(value) and the cast; and CUDA-graph replay) beside
+    bf16 inference shapes) and msda_bwd_bf16 against its oracle
+    (check_bwd_bf16): autograd of the plain version on f64 copies of the
+    same bf16 value, locations, weights and output gradient. d(value): the
+    kernel sums in fp32 and rounds once, so its error must be within one bf16
+    step of the largest entry (2^-8 of it) and no larger than the plain
+    version's in bf16 (its index backward sums in bf16). d(loc) and
+    d(weights), fp32, against the plain version on the same bf16 value (fp32
+    arithmetic that picks the kernel's corners; the f64 oracle picks others
+    where a location's product sits on a pixel boundary, and its distance is
+    printed), 1e-4 of the largest entry as for fp32. Each timed (CUDA events,
+    wrapper included: for the backward at Q == N its zeroed fp32 scratch and
+    the cast; and CUDA-graph replay) beside
     msda_bwd_f32 on the fp32 upcast (graph replay), the plain version, the
     grid_sample form and the bound. Returns the forward's and the backward's
     max |err| and launch-weighted timings per site."""
@@ -1766,35 +1993,9 @@ def bf16_sites(da, path, seen, card):
                 fail(f"msda_fwd_bf16 disagrees with its plain version at {path} {site} {key}")
             errs["fwd"][site] = max(errs["fwd"].get(site, 0.0), f_err)
             del got, want
-            got = da.ms_deform_attn_bwd_cuda(vb, shapes, lo, aw, gout)
-            _, _, plain = grads_of(torch, lambda a, b, c: da.ms_deform_attn_plain(a, shapes, b, c),
-                                   vb, lo, aw, gout)
-            _, _, oracle = grads_of(
-                torch, lambda a, b, c: da.ms_deform_attn_plain(a, shapes, b, c),
-                vb.double(), lo.double(), aw.double(), gout.double())
-            torch.cuda.synchronize()
-            scale = float(oracle[0].abs().max())
-            err = float((got[0].double() - oracle[0]).abs().max())
-            err_plain = float((plain[0].double() - oracle[0]).abs().max())
-            ok = (got[0].dtype == torch.bfloat16 and err <= 2.0 ** -8 * scale
-                  and err <= err_plain and bool(torch.isfinite(got[0]).all()))
-            msgs = [f"dvalue bf16 {err:.2e} (plain bf16 {err_plain:.2e}, tol {2.0 ** -8 * scale:.1e}"
-                    f" and no larger than plain)"]
-            worst = err
-            for name, g, w, o in zip(("loc", "attw"), got[1:], plain[1:], oracle[1:]):
-                e = float((g - w).abs().max())
-                tol = 1e-4 * max(1.0, float(w.abs().max()))
-                msgs.append(f"d{name} {e:.2e} (tol {tol:.1e}; from f64 "
-                            f"{float((g.double() - o).abs().max()):.2e})")
-                ok = ok and e <= tol and bool(torch.isfinite(g).all())
-                worst = max(worst, e)
-            errs["bwd"][site] = max(errs["bwd"].get(site, 0.0), worst)
-            print(f"{path} bwd bf16 {site:12s} B={B} Q={Q} H={H} D={D} P={P} L={len(shapes)} "
-                  f"{shapes[0][0]}x{shapes[0][1]}..: {count} launches | max|err| "
-                  f"{', '.join(msgs)} {'ok' if ok else 'FAIL'}", flush=True)
-            if not ok:
-                fail(f"msda_bwd_bf16 disagrees with its oracle at {path} {site} {key}")
-            del got, plain, oracle
+            errs["bwd"][site] = max(errs["bwd"].get(site, 0.0), check_bwd_bf16(
+                da, f"{path} bwd bf16 {site:12s} B={B} Q={Q} H={H} D={D} P={P} L={len(shapes)} "
+                f"{shapes[0][0]}x{shapes[0][1]}..: {count} launches |", vb, shapes, lo, aw, gout))
             tf = dict(ms=measure.time_ms(lambda: da.ms_deform_attn_cuda(vb, shapes, lo, aw), 20),
                       device_ms=measure.graph_ms(
                           lambda: da.ms_deform_attn_cuda(vb, shapes, lo, aw), 20),
@@ -3218,6 +3419,8 @@ def main():
     r50_seen = {site: collections.Counter({(B, Q, H, D, P, shapes, "bfloat16"): 1})
                 for site, B, Q, H, D, P, shapes, _ in BWD_CHECKS[:3]}
     amp_ferr, amp_berr, amp_ft, amp_bt = bf16_sites(da, "train_amp", r50_seen, card)
+    phase("msda_bwd_bf16 at odd shapes, tail tiles and a crowded input against its oracle")
+    bf16_cases(da)
     phase(f"main path: the AMP training step at full width ({card})")
     amp_fwd, amp_bwd, _ = train_full_width(torch, da, card, amp=True, fp32_losses=fp32_first)
     phase("tiny AMP training step: the card's path against the port's CPU path")

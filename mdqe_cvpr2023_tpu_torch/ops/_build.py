@@ -151,9 +151,10 @@ def load(name: str) -> ctypes.CDLL:
         for fn in (lib.msda_fwd_f32_block, lib.msda_fwd_bf16_block):
             fn.argtypes = [ptr, ptr, ptr, ptr, ptr] + [i32] * 8 + [ptr]
             fn.restype = i32
-        for fn in (lib.msda_bwd_f32, lib.msda_bwd_bf16):
-            fn.argtypes = [ptr] * 8 + [i32] * 7 + [ptr]
-            fn.restype = i32
+        lib.msda_bwd_f32.argtypes = [ptr] * 8 + [i32] * 7 + [ptr]
+        lib.msda_bwd_f32.restype = i32
+        lib.msda_bwd_bf16.argtypes = [ptr] * 9 + [i32] * 9 + [ptr]
+        lib.msda_bwd_bf16.restype = i32
         lib.msda_error_string.argtypes = [i32]
         lib.msda_error_string.restype = ctypes.c_char_p
     elif name == "tc_kdepth":

@@ -31,9 +31,10 @@
 //   attw        (B, Q, H, L, P)     fp32
 //   out         (B, Q, H * D)       fp32
 //   grad_out    (B, Q, H * D)       fp32
-//   grad_value  (B, N, H, D)        fp32 whatever the value's type, zeroed by
-//                                   the caller (who casts it to bf16 after
-//                                   msda_bwd_bf16)
+//   grad_value  (B, N, H, D)        the value's type; fp32 zeroed by the
+//                                   caller (msda_bwd_f32), bf16 written in
+//                                   full (msda_bwd_bf16)
+//   work        (B, N, H, D)        fp32 scratch of msda_bwd_bf16 (below)
 //   grad_loc    (B, Q, H, L, P, 2)  fp32
 //   grad_attw   (B, Q, H, L, P)     fp32
 //
@@ -99,20 +100,54 @@
 //
 // msda_bwd_bf16 (the AMP step's backward; the TPU's Pallas backward gets a
 // bf16 value there and computes in bf16, mdqe_cvpr2023_tpu/ops/deform_attn.py)
-// is the same kernel over a bf16 value: its thread holds 8 contiguous
-// channels, 8g .. 8g+7, loaded as one 16-byte vector and widened to fp32
-// exactly by shifts; every product and sum is fp32, and so is d(value):
-// it is scattered with the same red.global.add.v4.f32 (a thread's two
-// float4s now 4 channels apart instead of D/2, and the pair swap still makes
-// each reduction write whole rows) into an fp32 buffer that the wrapper casts
-// to bf16 once, as the JAX backward sums in fp32 and casts once. No bf16
-// atomics: their sums would round at every tap. grad_out, locations and
-// weights stay fp32 (the forward returns fp32, so the incoming gradient is
-// fp32). It reads half the value bytes of msda_bwd_f32 and sends the same
-// scatter to L2, which limits both (below), so it is expected to take about
-// fp32's time.
+// has kernels of its own; msda_bwd_f32 keeps the template above. Its thread
+// holds 8 contiguous channels, 8g .. 8g+7, loaded as one 16-byte vector and
+// widened to fp32 exactly by shifts; every product and sum is fp32, d(value)
+// included, rounded to bf16 once (the JAX backward sums in fp32 and casts
+// once). No bf16 atomics: their sums would round at every tap. The sample
+// work (loads, dot products, the group's shuffle sums, d(locations) and
+// d(weights) with the __fmul_rn coordinate and the corner rule) is
+// msda_bwd_kernel's, in bf16_pair. The design differs in d(value):
 //
-// Bound on this card. Bytes and flops give the least time: per (b, q, head)
+// At the encoder (Q == N: the queries are the levels' pixels in order, the
+// wrapper's `tiled`), msda_bwd_bf16_tiled_kernel: a block serves a 4x8 tile
+// of query pixels of one level for one (b, head), the heads-of-a-query order
+// given up, so that the block's taps of one sampled level land on few rows
+// (the queries' reference points are neighbours, and so are their samples).
+// Per sampled level and round of 4 points the block takes the taps'
+// bounding box; if it spans at most kWindow (512) rows, each row gets
+// 4 * 512 / (box rows) slots in shared memory, a shared int atomic gives each
+// tap its rank in its row (the first lists the row), and one thread per
+// (listed row, 4 channels) sums the row's taps, sum_t a w_corner g_q(t), g
+// from the tile's output gradient staged in shared memory, and sends one
+// red.global.add.v4.f32 into an fp32 scratch (zeroed first; one kernel casts
+// it to bf16 after). A tap past its row's slots, and every tap of a wider
+// box, sends its own. On chip_smoke.py's encoder inputs this sends 6.6x
+// fewer reductions than one per tap (the count build of --bwd-split equals
+// measure.msda_bf16_reds exactly). The 8x16 tile merges more (7.7x) but its
+// 512-thread blocks and larger arrays ran slower on the H100, as did 8 slots
+// a tap (fewer blocks a SM), a 256-row window, a sort of the taps by row
+// (scan and place: twice the barriers) and taking the box from the
+// locations first so that taps go to their slots as they are computed
+// (shared atomics among the loads). What remains is the sample work, the
+// merge's shared-memory reads (128 bytes of g a tap at D = 32) and the
+// barriers; the reductions left take little (plain stores in their place
+// save ~nothing).
+//
+// At the decoder sites (a few hundred queries spread over the levels:
+// merging pays little), two kernels: msda_bwd_bf16_sample_kernel, the sample
+// work with the levels split over threads (a thread per (b, q, head, level,
+// 8 channels): four times the threads), and msda_bwd_bf16_value_kernel,
+// where a block owns up to 2048 rows of a level of one (b, head), stages its
+// queries' output gradient rows (and their taps in its rows, counting-sorted
+// by row) in shared memory and writes every row once as bf16, zeros
+// included: no zero fill, no scatter and no cast pass, which made the
+// earlier kernel slower here than msda_bwd_f32 (the shared template over a
+// bf16 value: its fp32 buffer's zero fill and cast moved 175 MB for 196
+// queries at the box site).
+//
+// Bound on this card (both kernels; the measurements below are msda_bwd_f32's,
+// PERF.md has msda_bwd_bf16's). Bytes and flops give the least time: per (b, q, head)
 // the backward reads 4 rows of D values per point, the locations, weights
 // and output gradient, and writes d(value) in full (8 flops per tap and
 // channel), far below the ~20 FLOP/byte ridge of fp32 on an H100, so its
@@ -146,6 +181,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 namespace {
@@ -316,10 +352,6 @@ template <typename T> struct BwdChannels;
 template <> struct BwdChannels<float> {
   __device__ static int base(int g) { return 4 * g; }
   __device__ static int second(int D) { return D >> 1; }
-};
-template <> struct BwdChannels<__nv_bfloat16> {
-  __device__ static int base(int g) { return 8 * g; }
-  __device__ static int second(int) { return 4; }
 };
 
 // A loaded row as 8 fp32 channels (bf16 -> fp32 is exact: the high half).
@@ -517,6 +549,619 @@ __global__ void __launch_bounds__(kBwdThreads) msda_bwd_kernel(
   }
 }
 
+// ---- msda_bwd_bf16 -----------------------------------------------------------
+//
+// A kernel of its own (the design note above): at the encoder (Q == N) a
+// block serves a tile of kTileH x kTileW query pixels of one level for one
+// (b, head) and merges its taps' d(value) rows on the SM, per round of
+// kRoundP points of one sampled level, when the round's bounding box spans
+// at most kWindow rows; at the decoder sites a sample kernel computes
+// d(locations) and d(weights) and a value kernel owns d(value)'s rows.
+constexpr int kTileH = 4;
+constexpr int kTileW = 8;
+constexpr int kRoundP = 4;
+constexpr int kWindow = 512;
+constexpr int kTileQ = kTileH * kTileW;
+constexpr int kRoundTaps = kTileQ * kRoundP * 4;  // a round's taps, 4 a point
+constexpr int kSlots = 4 * kRoundTaps;  // a round's merge slots: kSlots / (box rows) a row
+static_assert(kSlots / kWindow >= 4, "at least 4 slots a row");
+// The decoder's d(value) kernel: a block owns up to kValRows rows of one
+// level for one (b, head); it takes the queries in segments of at most
+// kValPoints points and kValQueries queries, their taps and output gradient
+// rows staged in shared memory together.
+constexpr int kValThreads = 512;
+constexpr int kValRows = 2048;
+constexpr int kValPoints = 1024;
+constexpr int kValQueries = 256;
+static_assert(4 * kValPoints <= 4096 && kValRows < (1 << 19), "keys: row << 12 | rank");
+
+// Exclusive prefix sums of in[0, n) into out, by the block's kThreads threads
+// (a multiple of 32); s_warp holds 32 ints. Callers synchronize before it
+// (in is complete) and after it (before out is read).
+template <int kThreads>
+__device__ __forceinline__ void block_exclusive_scan(const int* in, int* out, int n,
+                                                     int* s_warp) {
+  constexpr int kWarps = kThreads / 32;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int per = (n + kThreads - 1) / kThreads;
+  const int lo = min(n, tid * per), hi = min(n, lo + per);
+  int sum = 0;
+  for (int i = lo; i < hi; ++i) sum += in[i];
+  int incl = sum;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int v = __shfl_up_sync(0xffffffffu, incl, off);
+    if (lane >= off) incl += v;
+  }
+  if (lane == 31) s_warp[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    const int w = lane < kWarps ? s_warp[lane] : 0;
+    int wi = w;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int v = __shfl_up_sync(0xffffffffu, wi, off);
+      if (lane >= off) wi += v;
+    }
+    if (lane < kWarps) s_warp[lane] = wi - w;
+  }
+  __syncthreads();
+  int run = s_warp[warp] + incl - sum;
+  for (int i = lo; i < hi; ++i) {
+    out[i] = run;
+    run += in[i];
+  }
+}
+
+// The merged d(value) rows of msda_bwd_bf16: one 16-byte vector reduction
+// per 4 channels of a row (sm_90, PTX ISA 8.1; .relaxed.gpu is red's
+// default, spelled out).
+#ifdef MSDA_COUNT_REDS
+__device__ unsigned long long msda_red_count;  // debug builds: reductions sent
+#endif
+__device__ __forceinline__ void red_rows4(float* p, float4 v) {
+#ifdef MSDA_COUNT_REDS
+  atomicAdd(&msda_red_count, 1ull);
+#endif
+  asm volatile("red.relaxed.gpu.global.add.v4.f32 [%0], {%1, %2, %3, %4};"
+               :: "l"(__cvta_generic_to_global(p)), "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w)
+               : "memory");
+}
+
+// Two fp32 rounded to nearest even as bf16, the first in the low half.
+__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ void fma4(float4& acc, float c, float4 g) {
+  acc.x += c * g.x;
+  acc.y += c * g.y;
+  acc.z += c * g.z;
+  acc.w += c * g.w;
+}
+
+// A point pair's locations and weights (as float4 / float2 when P is even:
+// the pair's vectors are then aligned); a point past P (`second` false) lands
+// far outside the level, where no corner is in range.
+__device__ __forceinline__ void load_pair(const float* __restrict__ loc_i,
+                                          const float* __restrict__ aw_i, int i0, bool second,
+                                          bool vec, float (&px)[2], float (&py)[2],
+                                          float (&a)[2]) {
+  if (vec) {
+    const float4 xy = __ldg(reinterpret_cast<const float4*>(loc_i + 2 * i0));
+    const float2 w2 = __ldg(reinterpret_cast<const float2*>(aw_i + i0));
+    px[0] = xy.x;
+    py[0] = xy.y;
+    px[1] = xy.z;
+    py[1] = xy.w;
+    a[0] = w2.x;
+    a[1] = w2.y;
+  } else {
+    px[0] = __ldg(loc_i + 2 * i0);
+    py[0] = __ldg(loc_i + 2 * i0 + 1);
+    a[0] = __ldg(aw_i + i0);
+    px[1] = second ? __ldg(loc_i + 2 * i0 + 2) : -1.f;
+    py[1] = second ? __ldg(loc_i + 2 * i0 + 3) : -1.f;
+    a[1] = second ? __ldg(aw_i + i0 + 1) : 0.f;
+  }
+}
+
+// A point's top-left corner (x0, y0) and fractions: pixel coordinate =
+// loc * size - 0.5, the product rounded on its own. Far outside the level
+// every corner is out of range either way; the clamp only keeps the int
+// conversion defined.
+__device__ __forceinline__ void corner(float px, float py, int hl, int wl, int& x0, int& y0,
+                                       float& fx, float& fy) {
+  float x = __fmul_rn(px, (float)wl) - 0.5f;
+  float y = __fmul_rn(py, (float)hl) - 0.5f;
+  x = fminf(fmaxf(x, -2.f), (float)wl + 1.f);
+  y = fminf(fmaxf(y, -2.f), (float)hl + 1.f);
+  const float x0f = floorf(x);
+  const float y0f = floorf(y);
+  x0 = (int)x0f;
+  y0 = (int)y0f;
+  fx = x - x0f;
+  fy = y - y0f;
+}
+
+// One point pair of one (b, q, head) group of msda_bwd_bf16 (the work of
+// msda_bwd_kernel's inner loop without its scatter): the 8 taps' loads of
+// the thread's 8 channels, their dot products with the output gradient, and
+// the group's three sums per point reduced over its kGp threads (s: d(weight),
+// d(x), d(y) before a * size). Per tap also its d(value) coefficient
+// a * w_x * w_y and pixel, cy << 16 | cx, or -1 when the corner is out of
+// range or `own` is false. `second`: the pair's second point exists.
+template <int kGp>
+__device__ __forceinline__ void bf16_pair(
+    const __nv_bfloat16* __restrict__ v_l, const float* __restrict__ loc_i,
+    const float* __restrict__ aw_i, int i0, bool second, bool vec, bool live, bool own,
+    int hl, int wl, int row_stride, const Vec8<float>& go, float (&a)[2], float (&s)[2][3],
+    float (&wc)[2][4], int (&pix)[2][4]) {
+  float px[2], py[2];
+  load_pair(loc_i, aw_i, i0, second, vec, px, py, a);
+  Vec8<__nv_bfloat16> v[2][4];
+  float fx[2], fy[2];
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    int x0, y0;
+    corner(px[u], py[u], hl, wl, x0, y0, fx[u], fy[u]);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int cx = x0 + (c & 1);
+      const int cy = y0 + (c >> 1);
+      const bool ok = cx >= 0 && cx < wl && cy >= 0 && cy < hl;
+      pix[u][c] = ok && own ? (cy << 16) | cx : -1;
+      if (ok && live) {
+        load_split(v[u][c], v_l + (cy * wl + cx) * row_stride, 4);
+      } else {
+        zero8(v[u][c]);
+      }
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    s[u][0] = s[u][1] = s[u][2] = 0.f;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const float wx = (c & 1) ? fx[u] : 1.f - fx[u];
+      const float wy = (c >> 1) ? fy[u] : 1.f - fy[u];
+      const Vec8<float> r = widen(v[u][c]);
+      const float dot = go.lo.x * r.lo.x + go.lo.y * r.lo.y + go.lo.z * r.lo.z +
+                        go.lo.w * r.lo.w + go.hi.x * r.hi.x + go.hi.y * r.hi.y +
+                        go.hi.z * r.hi.z + go.hi.w * r.hi.w;
+      s[u][0] += wx * wy * dot;
+      s[u][1] += ((c & 1) ? wy : -wy) * dot;  // d(wx)/dx = +-1
+      s[u][2] += ((c >> 1) ? wx : -wx) * dot;
+      wc[u][c] = a[u] * wx * wy;
+    }
+  }
+#pragma unroll
+  for (int off = kGp / 2; off > 0; off >>= 1) {
+#pragma unroll
+    for (int u = 0; u < 2; ++u)
+#pragma unroll
+      for (int k = 0; k < 3; ++k) s[u][k] += __shfl_xor_sync(0xffffffffu, s[u][k], off);
+  }
+}
+
+// The pair's d(weights) and d(locations), stored by the group's thread 0.
+__device__ __forceinline__ void store_pair(const float (&s)[2][3], const float (&a)[2],
+                                           bool vec, bool second, int i0, int hl, int wl,
+                                           float* gloc_i, float* gaw_i) {
+  const float gx0 = a[0] * s[0][1] * (float)wl;  // x = loc_x * w - 0.5
+  const float gy0 = a[0] * s[0][2] * (float)hl;
+  const float gx1 = a[1] * s[1][1] * (float)wl;
+  const float gy1 = a[1] * s[1][2] * (float)hl;
+  if (vec) {
+    *reinterpret_cast<float2*>(gaw_i + i0) = make_float2(s[0][0], s[1][0]);
+    *reinterpret_cast<float4*>(gloc_i + 2 * i0) = make_float4(gx0, gy0, gx1, gy1);
+  } else {
+    gaw_i[i0] = s[0][0];
+    gloc_i[2 * i0] = gx0;
+    gloc_i[2 * i0 + 1] = gy0;
+    if (second) {
+      gaw_i[i0 + 1] = s[1][0];
+      gloc_i[2 * i0 + 2] = gx1;
+      gloc_i[2 * i0 + 3] = gy1;
+    }
+  }
+}
+
+// msda_bwd_bf16 at Q == N (the queries are the levels' pixels in order):
+// block (tile, head, b), kTileQ * kGp threads, thread = (tile slot, g). Per
+// sampled level and round of kRoundP points the threads record their taps
+// (corner c by thread c % kGp of the group) in shared memory with the
+// round's bounding box; then, when the box spans at most kWindow rows, each
+// row of the box gets kSlots / (box rows) slots, a tap takes the next slot of
+// its row (a shared int atomic gives its rank; the row's first tap lists the
+// row), and one thread per (listed row, 4 channels) sums its row's taps,
+// sum_t a w_corner g_q(t), and sends one vector reduction into the fp32
+// `work`. A tap past its row's slots, and every tap of a wider box, sends
+// its own.
+template <int kGp>
+__global__ void __launch_bounds__(kTileQ * kGp) msda_bwd_bf16_tiled_kernel(
+    const __nv_bfloat16* __restrict__ value, const int* __restrict__ level_meta,
+    const float* __restrict__ loc, const float* __restrict__ attw,
+    const float* __restrict__ grad_out, float* __restrict__ work,
+    float* __restrict__ grad_loc, float* __restrict__ grad_attw, int N, int H, int D, int L,
+    int P) {
+  constexpr int kThreads = kTileQ * kGp;
+  constexpr int kSlotTaps = kRoundP * 4;
+  __shared__ int s_meta[3 * kMaxLevels];  // h, w, start of each level
+  __shared__ int s_tap[kRoundTaps];       // pixel (cy << 16 | cx) or -1
+  __shared__ float s_coef[kRoundTaps];    // a * w_x * w_y
+  __shared__ int s_cnt[kWindow];          // taps of each window row
+  __shared__ int2 s_rows[kWindow];        // rows with taps: (window row, row of work)
+  __shared__ int s_nrows;
+  __shared__ int s_box[2][4];             // per round parity: min x, -max x, min y, -max y
+  // dynamic: the merge slots, then the tile's output gradient (kTileQ x D, head h)
+  extern __shared__ __align__(16) float2 s_slot[];  // (a * w_x * w_y, slot * D as int)
+  float* s_g = reinterpret_cast<float*>(s_slot + kSlots);
+  const int tid = threadIdx.x;
+  for (int i = tid; i < 3 * L; i += kThreads) s_meta[i] = level_meta[i];
+  for (int i = tid; i < kWindow; i += kThreads) s_cnt[i] = 0;
+  if (tid < 8) (&s_box[0][0])[tid] = INT_MAX;
+  if (tid == 0) s_nrows = 0;
+  __syncthreads();
+
+  // This block's tile: level ql, first pixel (ty0, tx0) (the host's plan,
+  // deform_attn.py::bwd_bf16_plan, counts the same tiles).
+  int t = blockIdx.x, ql = 0;
+  for (; ql < L; ++ql) {
+    const int n = ((s_meta[3 * ql] + kTileH - 1) / kTileH) *
+                  ((s_meta[3 * ql + 1] + kTileW - 1) / kTileW);
+    if (t < n) break;
+    t -= n;
+  }
+  if (ql == L) return;  // block-uniform, before any further barrier
+  const int qh = s_meta[3 * ql], qw = s_meta[3 * ql + 1];
+  const int nx = (qw + kTileW - 1) / kTileW;
+  const int ty0 = t / nx * kTileH, tx0 = t % nx * kTileW;
+  const int slot = tid / kGp, g = tid % kGp;
+  const int y = ty0 + slot / kTileW, x = tx0 + slot % kTileW;
+  // A slot past the level's edge (a tail tile) works on the tile's first
+  // query and records, adds and stores nothing: the shuffles and barriers
+  // need every thread.
+  const bool own = y < qh && x < qw;
+  const int q = s_meta[3 * ql + 2] + (own ? y * qw + x : ty0 * qw + tx0);
+  const bool live = own && g < (D >> 3);  // not a spare thread of the group
+  const int h = blockIdx.y;
+  const int64_t b = blockIdx.z;
+  const int64_t item = (b * N + q) * H + h;  // (b, q, head)
+  const int LP = L * P;
+  const int row_stride = H * D;
+  const int64_t bh_off = b * (int64_t)N * row_stride + h * D;
+  const __nv_bfloat16* v_bh = value + bh_off + 8 * g;
+  float* w_bh = work + bh_off;
+  const float* loc_i = loc + item * LP * 2;
+  const float* aw_i = attw + item * LP;
+  float* gloc_i = grad_loc + item * LP * 2;
+  float* gaw_i = grad_attw + item * LP;
+  const bool vec = P % 2 == 0;  // then the pairs' vectors are aligned
+  // The scatter's threads: thread tid serves 4-channel piece k of rows
+  // tid / C4, + step, ... (threads past step * C4 idle there).
+  const int C4 = D >> 2;
+  const int k4 = tid % C4, step = kThreads / C4;
+  const bool scatters = tid < step * C4;
+
+  Vec8<float> go;  // this thread's 8 channels (8g .. 8g+7) of the output gradient
+  if (live) {
+    load_split(go, grad_out + item * D + 8 * g, 4);
+    float4* sg = reinterpret_cast<float4*>(s_g + slot * D + 8 * g);
+    sg[0] = go.lo;
+    sg[1] = go.hi;
+  } else {
+    zero8(go);
+  }
+
+  int round = 0;
+  for (int l = 0; l < L; ++l) {
+    const int hl = s_meta[3 * l];
+    const int wl = s_meta[3 * l + 1];
+    const int lstart = s_meta[3 * l + 2];
+    const __nv_bfloat16* v_l = v_bh + (int64_t)lstart * row_stride;
+    for (int pb = 0; pb < P; pb += kRoundP, ++round) {
+      int box[4] = {INT_MAX, INT_MAX, INT_MAX, INT_MAX};
+#pragma unroll
+      for (int pp = 0; pp < kRoundP; pp += 2) {
+        const int p0 = pb + pp;
+        float a[2], s[2][3], wc[2][4];
+        int pix[2][4];
+        if (p0 < P) {  // block-uniform
+          bf16_pair<kGp>(v_l, loc_i, aw_i, l * P + p0, p0 + 1 < P, vec, live, own, hl, wl,
+                         row_stride, go, a, s, wc, pix);
+          if (g == 0 && own) store_pair(s, a, vec, p0 + 1 < P, l * P + p0, hl, wl, gloc_i, gaw_i);
+        } else {
+#pragma unroll
+          for (int u = 0; u < 2; ++u)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) pix[u][c] = -1, wc[u][c] = 0.f;
+        }
+#pragma unroll
+        for (int u = 0; u < 2; ++u)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            if (c % kGp != g) continue;
+            const int i = (slot * kRoundP + pp + u) * 4 + c;
+            s_tap[i] = pix[u][c];
+            s_coef[i] = wc[u][c];
+            if (pix[u][c] >= 0) {
+              const int cx = pix[u][c] & 0xffff, cy = pix[u][c] >> 16;
+              box[0] = min(box[0], cx);
+              box[1] = min(box[1], -cx);
+              box[2] = min(box[2], cy);
+              box[3] = min(box[3], -cy);
+            }
+          }
+      }
+      const int par = round & 1;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int v = __reduce_min_sync(0xffffffffu, box[k]);
+        if ((tid & 31) == 0 && v != INT_MAX) atomicMin(&s_box[par][k], v);
+      }
+      __syncthreads();
+      const int bx0 = s_box[par][0], bx1 = -s_box[par][1];
+      const int by0 = s_box[par][2], by1 = -s_box[par][3];
+      // the other parity's box was last read before this round's barrier
+      if (tid < 4) s_box[par ^ 1][tid] = INT_MAX;
+      if (bx0 <= bx1) {  // the round has taps (block-uniform)
+        const int ww = bx1 - bx0 + 1;
+        const int W = ww * (by1 - by0 + 1);
+        if (W <= kWindow) {
+          const int K = kSlots / W;  // slots a row
+          for (int i = tid; i < kRoundTaps; i += kThreads) {
+            const int p = s_tap[i];
+            if (p < 0) continue;
+            const int cx = p & 0xffff, cy = p >> 16;
+            const int lr = (cy - by0) * ww + cx - bx0;
+            const int rank = atomicAdd(&s_cnt[lr], 1);
+            const int row = lstart + cy * wl + cx;
+            if (rank == 0) s_rows[atomicAdd(&s_nrows, 1)] = make_int2(lr, row);
+            const int gd = i / kSlotTaps * D;  // the tap's query in s_g
+            if (rank < K) {
+              s_slot[lr * K + rank] = make_float2(s_coef[i], __int_as_float(gd));
+            } else {  // a crowded row past its slots: this tap's reductions go now
+              for (int k = 0; k < C4; ++k) {
+                red_rows4(w_bh + (int64_t)row * row_stride + 4 * k,
+                          scale4(reinterpret_cast<const float4*>(s_g + gd)[k], s_coef[i]));
+              }
+            }
+          }
+          __syncthreads();
+          const int nrows = s_nrows;
+          if (scatters) {
+            for (int r = tid / C4; r < nrows; r += step) {
+              const int2 row = s_rows[r];
+              const float2* e = s_slot + row.x * K;
+              const int n = min(s_cnt[row.x], K);
+              float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+              for (int j = 0; j < n; ++j) {
+                const float2 tp = e[j];
+                fma4(acc, tp.x, reinterpret_cast<const float4*>(s_g + __float_as_int(tp.y))[k4]);
+              }
+              red_rows4(w_bh + (int64_t)row.y * row_stride + 4 * k4, acc);
+            }
+          }
+          __syncthreads();
+          for (int r = tid; r < nrows; r += kThreads) s_cnt[s_rows[r].x] = 0;
+          if (tid == 0) s_nrows = 0;
+        } else if (scatters) {
+          for (int i = tid / C4; i < kRoundTaps; i += step) {
+            const int p = s_tap[i];
+            if (p < 0) continue;
+            const int row = lstart + (p >> 16) * wl + (p & 0xffff);
+            red_rows4(w_bh + (int64_t)row * row_stride + 4 * k4,
+                      scale4(reinterpret_cast<const float4*>(s_g + i / kSlotTaps * D)[k4],
+                             s_coef[i]));
+          }
+        }
+      }
+      __syncthreads();  // s_tap, s_coef and s_cnt are free for the next round
+    }
+  }
+}
+
+// msda_bwd_bf16 at the decoder sites (Q != N): d(locations) and d(weights)
+// in msda_bwd_kernel's work order with the levels split over threads, one
+// thread per (b, q, head, level, 8 channels) (a few hundred queries give too
+// few threads otherwise), without a scatter.
+template <int kGp>
+__global__ void __launch_bounds__(kBwdThreads) msda_bwd_bf16_sample_kernel(
+    const __nv_bfloat16* __restrict__ value, const int* __restrict__ level_meta,
+    const float* __restrict__ loc, const float* __restrict__ attw,
+    const float* __restrict__ grad_out, float* __restrict__ grad_loc,
+    float* __restrict__ grad_attw, int B, int N, int Q, int H, int D, int L, int P) {
+  __shared__ int s_meta[3 * kMaxLevels];
+  for (int i = threadIdx.x; i < 3 * L; i += kBwdThreads) s_meta[i] = level_meta[i];
+  __syncthreads();
+
+  const int64_t total = (int64_t)B * Q * H * L;  // (b, q, head, level)
+  const int64_t t = (int64_t)blockIdx.x * kBwdThreads + threadIdx.x;
+  const int g = (int)(t & (kGp - 1));
+  // Past the last (b, q, head, level) the group works on the last one's
+  // points and stores nothing; it must not return before the shuffles.
+  const bool in_range = t / kGp < total;
+  const int64_t pair = in_range ? t / kGp : total - 1;
+  const int l = (int)(pair % L);
+  const int64_t item = pair / L;  // (b, q, head)
+  const bool live = in_range && g < (D >> 3);
+  const int h = (int)(item % H);
+  const int64_t b = item / H / Q;
+  const int LP = L * P;
+  const int row_stride = H * D;
+  const int hl = s_meta[3 * l];
+  const int wl = s_meta[3 * l + 1];
+  const __nv_bfloat16* v_l =
+      value + (b * (int64_t)N + s_meta[3 * l + 2]) * row_stride + h * D + 8 * g;
+  const float* loc_i = loc + item * LP * 2;
+  const float* aw_i = attw + item * LP;
+  float* gloc_i = grad_loc + item * LP * 2;
+  float* gaw_i = grad_attw + item * LP;
+  const bool vec = P % 2 == 0;
+
+  Vec8<float> go;
+  if (live) {
+    load_split(go, grad_out + item * D + 8 * g, 4);
+  } else {
+    zero8(go);
+  }
+  for (int p0 = 0; p0 < P; p0 += 2) {
+    float a[2], s[2][3], wc[2][4];
+    int pix[2][4];
+    bf16_pair<kGp>(v_l, loc_i, aw_i, l * P + p0, p0 + 1 < P, vec, live, false, hl, wl,
+                   row_stride, go, a, s, wc, pix);
+    if (g == 0 && in_range) store_pair(s, a, vec, p0 + 1 < P, l * P + p0, hl, wl, gloc_i, gaw_i);
+  }
+}
+
+// Dynamic shared memory of msda_bwd_bf16_value_kernel at D channels and P
+// points: the sorted taps, keys and coefficients, the row counts and
+// offsets, a segment's gradient rows.
+__host__ __device__ int value_segment_queries(int P) {
+  return kValPoints / P < kValQueries ? kValPoints / P : kValQueries;
+}
+size_t value_smem_bytes(int D, int P) {
+  const int seg_q = value_segment_queries(P);
+  return (size_t)4 * kValPoints * (sizeof(float2) + 2 * sizeof(int)) +
+         2 * kValRows * sizeof(int) + (size_t)seg_q * D * sizeof(float);
+}
+
+// msda_bwd_bf16's d(value) at the decoder sites: block (row block, head, b)
+// owns up to kValRows consecutive rows of one level (the host's plan counts
+// the same blocks) and writes each once as bf16, zeros included: no zero
+// fill, no scatter, no cast pass. Per segment of the queries (all of them at
+// the decoder sites) it stages their output gradient rows in shared memory
+// and walks their points of the level, one a thread, listing the taps that
+// land in its rows (a shared int atomic gives each its rank in its row); a
+// counting sort groups them by row and one thread per (row, 4 channels) sums
+// its row's taps, sum_t a w_corner g_q(t), in registers. With several
+// segments (more than kValQueries queries, or kValPoints points) the partial
+// sums go through the fp32 `work` rows of the block, which no other block
+// touches: plain loads and stores.
+__global__ void __launch_bounds__(kValThreads) msda_bwd_bf16_value_kernel(
+    const int* __restrict__ level_meta, const float* __restrict__ loc,
+    const float* __restrict__ attw, const float* __restrict__ grad_out,
+    __nv_bfloat16* __restrict__ grad_value, float* __restrict__ work, int N, int Q, int H,
+    int D, int L, int P) {
+  __shared__ int s_meta[3 * kMaxLevels];
+  __shared__ int s_warp[32];
+  extern __shared__ __align__(16) unsigned char s_dyn[];  // layout: value_smem_bytes
+  float2* s_sorted = reinterpret_cast<float2*>(s_dyn);         // (a w_x w_y, q's offset in s_g)
+  int* s_key = reinterpret_cast<int*>(s_sorted + 4 * kValPoints);  // row << 12 | rank, or -1
+  float* s_coef = reinterpret_cast<float*>(s_key + 4 * kValPoints);
+  int* s_cnt = reinterpret_cast<int*>(s_coef + 4 * kValPoints);    // taps of each row
+  int* s_off = s_cnt + kValRows;                                   // their first place
+  float* s_g = reinterpret_cast<float*>(s_off + kValRows);         // segment's gradient rows
+  const int tid = threadIdx.x;
+  for (int i = tid; i < 3 * L; i += kValThreads) s_meta[i] = level_meta[i];
+  __syncthreads();
+  int t = blockIdx.x, l = 0;
+  for (; l < L; ++l) {
+    const int n = (s_meta[3 * l] * s_meta[3 * l + 1] + kValRows - 1) / kValRows;
+    if (t < n) break;
+    t -= n;
+  }
+  if (l == L) return;  // block-uniform
+  const int hl = s_meta[3 * l], wl = s_meta[3 * l + 1];
+  const int r0 = t * kValRows;
+  const int rows = min(kValRows, hl * wl - r0);
+  const int h = blockIdx.y;
+  const int64_t b = blockIdx.z;
+  const int C4 = D >> 2;
+  const int k4 = tid % C4, step = kValThreads / C4;  // as in the tiled kernel
+  const bool sums = tid < step * C4;
+  const int row_stride = H * D;
+  const int seg_q = value_segment_queries(P);
+  const int segs = (Q + seg_q - 1) / seg_q;
+  const float* g_bh = grad_out + b * (int64_t)Q * row_stride + h * D;
+  const int64_t out0 = ((b * N + s_meta[3 * l + 2] + r0) * H + h) * (int64_t)D;
+  for (int i = tid; i < rows; i += kValThreads) s_cnt[i] = 0;
+  for (int seg = 0; seg < segs; ++seg) {
+    const int q0 = seg * seg_q;
+    const int nq = min(seg_q, Q - q0);
+    for (int i = tid; i < nq * C4; i += kValThreads) {
+      const int qq = i / C4, kk = i - qq * C4;
+      reinterpret_cast<float4*>(s_g + qq * D)[kk] =
+          __ldg(reinterpret_cast<const float4*>(g_bh + (int64_t)(q0 + qq) * row_stride) + kk);
+    }
+    __syncthreads();  // s_cnt zeroed
+    for (int i = tid; i < nq * P; i += kValThreads) {
+      const int qq = i / P, p = i - qq * P;
+      const int64_t pt = (((b * Q + q0 + qq) * H + h) * L + l) * P + p;
+      const float2 xy = __ldg(reinterpret_cast<const float2*>(loc) + pt);
+      const float a = __ldg(attw + pt);
+      int x0, y0;
+      float fx, fy;
+      corner(xy.x, xy.y, hl, wl, x0, y0, fx, fy);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int cx = x0 + (c & 1);
+        const int cy = y0 + (c >> 1);
+        const int lr = cy * wl + cx - r0;
+        int key = -1;
+        if (cx >= 0 && cx < wl && cy >= 0 && cy < hl && lr >= 0 && lr < rows) {
+          key = (lr << 12) | atomicAdd(&s_cnt[lr], 1);
+        }
+        s_key[4 * i + c] = key;
+        s_coef[4 * i + c] = a * ((c & 1) ? fx : 1.f - fx) * ((c >> 1) ? fy : 1.f - fy);
+      }
+    }
+    __syncthreads();
+    block_exclusive_scan<kValThreads>(s_cnt, s_off, rows, s_warp);
+    __syncthreads();
+    for (int j = tid; j < 4 * nq * P; j += kValThreads) {
+      const int key = s_key[j];
+      if (key >= 0) {
+        s_sorted[s_off[key >> 12] + (key & 4095)] =
+            make_float2(s_coef[j], __int_as_float(j / 4 / P * D));
+      }
+    }
+    __syncthreads();
+    if (sums) {
+      for (int lr = tid / C4; lr < rows; lr += step) {
+        const float2* e = s_sorted + s_off[lr];
+        const int n = s_cnt[lr];
+        float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+        for (int j = 0; j < n; ++j) {
+          const float2 tp = e[j];
+          fma4(acc, tp.x, reinterpret_cast<const float4*>(s_g + __float_as_int(tp.y))[k4]);
+        }
+        const int64_t o = out0 + (int64_t)lr * row_stride + 4 * k4;
+        if (seg > 0) {
+          const float4 w = *reinterpret_cast<const float4*>(work + o);
+          acc.x += w.x;
+          acc.y += w.y;
+          acc.z += w.z;
+          acc.w += w.w;
+        }
+        if (seg + 1 < segs) {
+          *reinterpret_cast<float4*>(work + o) = acc;
+        } else {
+          *reinterpret_cast<uint2*>(grad_value + o) =
+              make_uint2(bf16x2(acc.x, acc.y), bf16x2(acc.z, acc.w));
+        }
+      }
+    }
+    __syncthreads();  // s_g, s_sorted and s_cnt are free for the next segment
+    for (int i = tid; i < rows; i += kValThreads) s_cnt[i] = 0;
+  }
+}
+
+// fp32 -> bf16, 8 values a thread, rounded to nearest even (as torch's cast).
+__global__ void __launch_bounds__(256) msda_bwd_bf16_cast_kernel(
+    const float* __restrict__ in, __nv_bfloat16* __restrict__ out, int64_t n8) {
+  const int64_t i = (int64_t)blockIdx.x * 256 + threadIdx.x;
+  if (i >= n8) return;
+  const float4 a = __ldg(reinterpret_cast<const float4*>(in) + 2 * i);
+  const float4 c = __ldg(reinterpret_cast<const float4*>(in) + 2 * i + 1);
+  reinterpret_cast<uint4*>(out)[i] = make_uint4(bf16x2(a.x, a.y), bf16x2(a.z, a.w),
+                                                bf16x2(c.x, c.y), bf16x2(c.z, c.w));
+}
+
 template <typename T, int kBlock>
 int launch_fwd(const T* v, const int* m, const float* lo, const float* aw, float* o,
                int B, int N, int Q, int H, int D, int L, int P, cudaStream_t s) {
@@ -598,6 +1243,104 @@ int launch_bwd(const void* value, const void* level_meta, const void* loc,
   return (int)cudaGetLastError();
 }
 
+// The tiled kernel with sg bytes of dynamic shared memory (the merge slots
+// and s_g), allowed past the 48 KB default.
+template <int kGp>
+cudaError_t launch_tiled(dim3 grid, size_t sg, cudaStream_t s, const __nv_bfloat16* v,
+                         const int* m, const float* lo, const float* aw, const float* go,
+                         float* w, float* gl, float* ga, int N, int H, int D, int L, int P) {
+  cudaError_t err = cudaFuncSetAttribute(msda_bwd_bf16_tiled_kernel<kGp>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sg);
+  if (err != cudaSuccess) return err;
+  msda_bwd_bf16_tiled_kernel<kGp><<<grid, kTileQ * kGp, sg, s>>>(v, m, lo, aw, go, w, gl, ga,
+                                                                 N, H, D, L, P);
+  return cudaGetLastError();
+}
+
+// tiled: the queries are the levels' pixels in order (Q == N), the
+// encoder's call; blocks: the plan's count (tiles, or d(value) row blocks).
+int launch_bwd_bf16(const void* value, const void* level_meta, const void* loc,
+                    const void* attw, const void* grad_out, void* grad_value, void* grad_loc,
+                    void* grad_attw, void* work, int B, int N, int Q, int H, int D, int L, int P,
+                    int tiled, int blocks, void* stream) {
+  if (L < 1 || L > kMaxLevels || D < 8 || D > 64 || D % 8 != 0 || P < 1 ||
+      (int64_t)N * H * D > 0x7fffffffLL || blocks < 1 || B > 65535 || H > 65535 ||
+      (tiled && (Q != N || work == nullptr))) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int64_t total = (int64_t)B * Q * H;
+  if (total == 0) return (int)cudaSuccess;
+  const int G = D / 8;
+  const int Gp = G == 1 ? 1 : G == 2 ? 2 : G <= 4 ? 4 : 8;  // threads per (b, q, head)
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const __nv_bfloat16* v = static_cast<const __nv_bfloat16*>(value);
+  const int* m = static_cast<const int*>(level_meta);
+  const float* lo = static_cast<const float*>(loc);
+  const float* aw = static_cast<const float*>(attw);
+  const float* go = static_cast<const float*>(grad_out);
+  __nv_bfloat16* gv = static_cast<__nv_bfloat16*>(grad_value);
+  float* gl = static_cast<float*>(grad_loc);
+  float* ga = static_cast<float*>(grad_attw);
+  const dim3 grid((unsigned)blocks, (unsigned)H, (unsigned)B);
+  if (tiled) {
+    float* w = static_cast<float*>(work);
+    const int64_t n = (int64_t)B * N * H * D;
+    cudaError_t err = cudaMemsetAsync(w, 0, n * sizeof(float), s);
+    if (err != cudaSuccess) return (int)err;
+    const size_t sg = kSlots * sizeof(float2) + (size_t)kTileQ * D * sizeof(float);
+    switch (Gp) {
+      case 1:
+        err = launch_tiled<1>(grid, sg, s, v, m, lo, aw, go, w, gl, ga, N, H, D, L, P);
+        break;
+      case 2:
+        err = launch_tiled<2>(grid, sg, s, v, m, lo, aw, go, w, gl, ga, N, H, D, L, P);
+        break;
+      case 4:
+        err = launch_tiled<4>(grid, sg, s, v, m, lo, aw, go, w, gl, ga, N, H, D, L, P);
+        break;
+      default:
+        err = launch_tiled<8>(grid, sg, s, v, m, lo, aw, go, w, gl, ga, N, H, D, L, P);
+    }
+    if (err != cudaSuccess) return (int)err;
+    const int64_t n8 = n / 8;
+    msda_bwd_bf16_cast_kernel<<<(unsigned)((n8 + 255) / 256), 256, 0, s>>>(w, gv, n8);
+    return (int)cudaGetLastError();
+  }
+  if (P > kValPoints || (Q > value_segment_queries(P) && work == nullptr)) {
+    return (int)cudaErrorInvalidValue;  // the value kernel's segments need `work`
+  }
+  const int64_t sample_blocks = (total * L * Gp + kBwdThreads - 1) / kBwdThreads;
+  if (sample_blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  const unsigned nb = (unsigned)sample_blocks;
+  switch (Gp) {
+    case 1:
+      msda_bwd_bf16_sample_kernel<1><<<nb, kBwdThreads, 0, s>>>(v, m, lo, aw, go, gl, ga, B, N,
+                                                                Q, H, D, L, P);
+      break;
+    case 2:
+      msda_bwd_bf16_sample_kernel<2><<<nb, kBwdThreads, 0, s>>>(v, m, lo, aw, go, gl, ga, B, N,
+                                                                Q, H, D, L, P);
+      break;
+    case 4:
+      msda_bwd_bf16_sample_kernel<4><<<nb, kBwdThreads, 0, s>>>(v, m, lo, aw, go, gl, ga, B, N,
+                                                                Q, H, D, L, P);
+      break;
+    default:
+      msda_bwd_bf16_sample_kernel<8><<<nb, kBwdThreads, 0, s>>>(v, m, lo, aw, go, gl, ga, B, N,
+                                                                Q, H, D, L, P);
+  }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const size_t smem = value_smem_bytes(D, P);
+  err = cudaFuncSetAttribute(msda_bwd_bf16_value_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  msda_bwd_bf16_value_kernel<<<grid, kValThreads, smem, s>>>(m, lo, aw, go, gv,
+                                                             static_cast<float*>(work), N, Q,
+                                                             H, D, L, P);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -638,14 +1381,28 @@ int msda_bwd_f32(const void* value, const void* level_meta, const void* loc,
                            grad_attw, B, N, Q, H, D, L, P, stream);
 }
 
-// value bf16; grad_value is fp32 (the wrapper casts it to bf16).
+// value and grad_value bf16; work: fp32 (B, N, H, D) scratch when tiled
+// (zeroed here) or when the decoder sites' queries take several segments
+// (Q > min(1024 / P, 256)), else unused (may be null).
 int msda_bwd_bf16(const void* value, const void* level_meta, const void* loc,
                   const void* attw, const void* grad_out, void* grad_value,
-                  void* grad_loc, void* grad_attw, int B, int N, int Q, int H,
-                  int D, int L, int P, void* stream) {
-  return launch_bwd<__nv_bfloat16>(value, level_meta, loc, attw, grad_out, grad_value,
-                                   grad_loc, grad_attw, B, N, Q, H, D, L, P, stream);
+                  void* grad_loc, void* grad_attw, void* work, int B, int N, int Q, int H,
+                  int D, int L, int P, int tiled, int blocks, void* stream) {
+  return launch_bwd_bf16(value, level_meta, loc, attw, grad_out, grad_value, grad_loc,
+                         grad_attw, work, B, N, Q, H, D, L, P, tiled, blocks, stream);
 }
+
+#ifdef MSDA_COUNT_REDS
+// Debug builds (chip_smoke.py --bwd-split): the vector reductions
+// msda_bwd_bf16 sent since the last call; zeroes the count.
+unsigned long long msda_red_count_take() {
+  unsigned long long n = 0, zero = 0;
+  cudaDeviceSynchronize();
+  cudaMemcpyFromSymbol(&n, msda_red_count, sizeof(n));
+  cudaMemcpyToSymbol(msda_red_count, &zero, sizeof(zero));
+  return n;
+}
+#endif
 
 const char* msda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -20,9 +20,12 @@ it never falls back. Each call site keeps its own forward launch count in
 ``BWD_BF16_LAUNCHES`` (bf16), raised only where the kernel is launched.
 ``ms_deform_attn_cuda_block`` launches the forward kernel at a chosen block
 size for the kernel tools, counted in ``BLOCK_LAUNCHES``. The backward
-kernels accumulate d(value) in fp32 with 16-byte vector atomics (bf16: into
-an fp32 buffer cast to bf16 once), so its summation order, and its last
-bits, vary from run to run. The
+kernels sum d(value) in fp32: ``msda_bwd_f32`` with 16-byte vector atomics
+per tap; ``msda_bwd_bf16`` at the encoder (Q == N) merges each tile's taps
+of a row on the SM before one vector atomic per row, into an fp32 buffer
+cast to bf16 once, and at the decoder sites owns each row in a block that
+writes it once as bf16 (``bwd_bf16_plan``). Where atomics sum, the order,
+and the last bits, vary from run to run. The
 kernels take D % 8 == 0, D <= 64, L <= 32 and 16-byte aligned inputs, the
 backward's output gradient included (``_check_kernel_inputs``); the outputs
 are allocated here.
@@ -102,6 +105,47 @@ def _level_meta(spatial_shapes: Tuple[Tuple[int, int], ...], device: str):
         rows.append((int(h), int(w), start))
         start += int(h) * int(w)
     return torch.tensor(rows, dtype=torch.int32, device=device)
+
+
+# msda_bwd_bf16's blocks, as ms_deform_attn.cu counts them (kTileH, kTileW,
+# kWindow, kValRows there): a query tile of BF16_TILE pixels of one level at
+# Q == N (its taps of a sampled level merged when they span at most
+# BF16_WINDOW rows),
+# else BF16_VALUE_ROWS rows of one level of d(value); per (b, head). The
+# decoder sites' d(value) kernel takes the queries in segments of at most
+# BF16_VALUE_POINTS points and BF16_VALUE_QUERIES queries (kValPoints,
+# kValQueries), and needs an fp32 scratch where there are several.
+BF16_TILE = (4, 8)
+BF16_WINDOW = 512
+BF16_VALUE_ROWS = 2048
+BF16_VALUE_POINTS = 1024
+BF16_VALUE_QUERIES = 256
+
+
+@functools.lru_cache(maxsize=64)
+def bwd_bf16_plan(spatial_shapes: Tuple[Tuple[int, int], ...],
+                  tiled: bool) -> Tuple[Tuple[int, ...], ...]:
+    """One (b, head)'s blocks of ``msda_bwd_bf16`` in the kernel's order
+    (its ``blockIdx.x``). ``tiled`` (Q == N, the queries being the levels'
+    pixels in order): (level, y0, x0, tile height, tile width) per tile, the
+    levels' tiles row-major, the last row and column of a level cut at its
+    edge. Otherwise: (level, first row, rows) per block of d(value) rows."""
+    blocks = []
+    for l, (h, w) in enumerate(spatial_shapes):
+        if tiled:
+            th, tw = BF16_TILE
+            blocks += [(l, y0, x0, min(th, h - y0), min(tw, w - x0))
+                       for y0 in range(0, h, th) for x0 in range(0, w, tw)]
+        else:
+            rows = BF16_VALUE_ROWS
+            blocks += [(l, r0, min(rows, h * w - r0)) for r0 in range(0, h * w, rows)]
+    return tuple(blocks)
+
+
+def bwd_bf16_segments(Q: int, P: int) -> int:
+    """Segments of the queries the decoder sites' d(value) kernel takes."""
+    per = min(BF16_VALUE_POINTS // P, BF16_VALUE_QUERIES)
+    return -(-Q // per)
 
 
 def _check_kernel_inputs(value, shapes, sampling_locations, attention_weights,
@@ -217,8 +261,11 @@ def ms_deform_attn_bwd_cuda(value, spatial_shapes: Sequence[Tuple[int, int]],
     a float32 value, ``msda_bwd_bf16`` for a bfloat16 one. Returns the
     gradients of the forward's output, given ``grad_output`` (B, Q, H*D)
     float32, with respect to value (in the value's type; the bf16 kernel sums
-    into float32 and the cast rounds once), locations and weights. ``site``
-    as in ``ms_deform_attn_cuda``, counted in ``BWD_LAUNCHES`` (fp32) or
+    in float32 and rounds once), locations and weights. At Q == N (the
+    encoder: the queries are the levels' pixels in order) ``msda_bwd_bf16``
+    runs its tiled kernel, which merges neighbouring queries' taps, else the
+    decoder sites' kernels. ``site`` as in
+    ``ms_deform_attn_cuda``, counted in ``BWD_LAUNCHES`` (fp32) or
     ``BWD_BF16_LAUNCHES`` (bf16)."""
     if value.dtype not in VALUE_DTYPES:
         raise TypeError(f"the backward kernel takes float32 or bfloat16 value, got "
@@ -233,19 +280,28 @@ def ms_deform_attn_bwd_cuda(value, spatial_shapes: Sequence[Tuple[int, int]],
     fn_name = f"msda_bwd_{VALUE_DTYPES[value.dtype]}"
     lib = _build.load("ms_deform_attn")
     meta = _level_meta(shapes, str(value.device))
-    grad_value = torch.zeros(value.shape, dtype=torch.float32, device=value.device)
     grad_loc = torch.empty_like(sampling_locations)
     grad_attw = torch.empty_like(attention_weights)
-    err = _build.launch(getattr(lib, fn_name), value.device, value.data_ptr(),
-                        meta.data_ptr(), sampling_locations.data_ptr(),
-                        attention_weights.data_ptr(), grad_output.data_ptr(),
-                        grad_value.data_ptr(), grad_loc.data_ptr(), grad_attw.data_ptr(),
-                        B, N, Q, H, D, L, P)
+    ptrs = (value.data_ptr(), meta.data_ptr(), sampling_locations.data_ptr(),
+            attention_weights.data_ptr(), grad_output.data_ptr())
+    if value.dtype == torch.float32:
+        grad_value = torch.zeros(value.shape, dtype=torch.float32, device=value.device)
+        err = _build.launch(lib.msda_bwd_f32, value.device, *ptrs, grad_value.data_ptr(),
+                            grad_loc.data_ptr(), grad_attw.data_ptr(), B, N, Q, H, D, L, P)
+    else:
+        tiled = Q == N
+        grad_value = torch.empty(value.shape, dtype=torch.bfloat16, device=value.device)
+        work = (torch.empty(value.shape, dtype=torch.float32, device=value.device)
+                if tiled or bwd_bf16_segments(Q, P) > 1 else None)
+        err = _build.launch(lib.msda_bwd_bf16, value.device, *ptrs, grad_value.data_ptr(),
+                            grad_loc.data_ptr(), grad_attw.data_ptr(),
+                            None if work is None else work.data_ptr(), B, N, Q, H, D, L, P,
+                            int(tiled), len(bwd_bf16_plan(shapes, tiled)))
     _raise_on(lib, fn_name, err)
     if site is not None:
         counts = BWD_LAUNCHES if value.dtype == torch.float32 else BWD_BF16_LAUNCHES
         counts[site] += 1
-    return grad_value.to(value.dtype), grad_loc, grad_attw
+    return grad_value, grad_loc, grad_attw
 
 
 class MSDeformAttnFunction(torch.autograd.Function):

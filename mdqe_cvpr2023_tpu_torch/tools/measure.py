@@ -105,6 +105,65 @@ def msda_taps(value, shapes, loc):
     return int(torch.unique(torch.cat(rows)).numel()), taps
 
 
+def msda_bf16_reds(value, shapes, loc, tile=None):
+    """The 16-byte vector reductions ``msda_bwd_bf16`` sends at Q == N (its
+    tiled kernel), from the inputs: per (b, head, query tile, sampled level,
+    round of 4 points) whose in-range taps' bounding box spans W <=
+    ``deform_attn.BF16_WINDOW`` rows, D / 4 for each distinct row they touch
+    and for each tap past the first slots // W of its row (slots: 4 a tap of
+    the round, the kernel's kSlots); else D / 4 for each tap. ``tile``
+    (height, width) defaults to the kernel's (``deform_attn.BF16_TILE``).
+    Returns (reductions, the D / 4 per tap that msda_bwd_f32 sends)."""
+    from ..ops import deform_attn as da
+    B, N, H, D = value.shape
+    _, Q, _, L, P, _ = loc.shape
+    th, tw = tile or da.BF16_TILE
+    slots = 4 * th * tw * 16
+    dev = loc.device
+    tiles, first = [], 0
+    for h_l, w_l in shapes:  # each query pixel's tile, levels' tiles row-major
+        yy, xx = torch.meshgrid(torch.arange(h_l, device=dev), torch.arange(w_l, device=dev),
+                                indexing="ij")
+        nx = -(-w_l // tw)
+        tiles.append((first + yy // th * nx + xx // tw).reshape(-1))
+        first += -(-h_l // th) * nx
+    tile_of = torch.cat(tiles)[:Q]
+    rounds = -(-P // 4)
+    b = torch.arange(B, device=dev).view(B, 1, 1, 1)
+    h = torch.arange(H, device=dev).view(1, 1, H, 1)
+    p = torch.arange(P, device=dev).view(1, 1, 1, P)
+    merged_rows, per_tap, all_taps = 0, 0, 0
+    for l, (h_l, w_l) in enumerate(shapes):
+        x = loc[:, :, :, l, :, 0] * w_l - 0.5
+        y = loc[:, :, :, l, :, 1] * h_l - 0.5
+        x0, y0 = torch.floor(x).long(), torch.floor(y).long()
+        group = ((b * H + h) * first + tile_of.view(1, Q, 1, 1)) * rounds + p // 4
+        gs, xs, ys = [], [], []
+        for cx, cy in ((x0, y0), (x0 + 1, y0), (x0, y0 + 1), (x0 + 1, y0 + 1)):
+            ok = (cx >= 0) & (cx < w_l) & (cy >= 0) & (cy < h_l)
+            gs.append(group.expand_as(cx)[ok])
+            xs.append(cx[ok])
+            ys.append(cy[ok])
+        g, cx, cy = torch.cat(gs), torch.cat(xs), torch.cat(ys)
+        all_taps += g.numel()
+        if g.numel() == 0:
+            continue
+        groups = B * H * first * rounds
+        big = torch.iinfo(torch.long).max
+        box = [torch.full((groups,), init, dtype=torch.long, device=dev).scatter_reduce(
+            0, g, v, reduce, include_self=True)
+            for v, init, reduce in ((cx, big, "amin"), (cx, -1, "amax"),
+                                    (cy, big, "amin"), (cy, -1, "amax"))]
+        span = (box[1] - box[0] + 1) * (box[3] - box[2] + 1)
+        fits = span[g] <= da.BF16_WINDOW
+        rows, taps = torch.unique(g[fits] * (h_l * w_l) + cy[fits] * w_l + cx[fits],
+                                  return_counts=True)
+        past = taps - slots // span[torch.div(rows, h_l * w_l, rounding_mode="floor")]
+        merged_rows += rows.numel() + int(past.clamp(min=0).sum())
+        per_tap += int((~fits).sum())
+    return (merged_rows + per_tap) * (D // 4), all_taps * (D // 4)
+
+
 def msda_bound(value, shapes, loc, attw):
     """Least time of the forward on an H100: the larger of (bytes it must
     move: the value rows its in-range taps touch, locations, weights, output)

@@ -372,6 +372,54 @@ def test_backward_bf16_through_autograd_counts_its_own_launches(cuda_device, cas
     assert sum(da.BWD_LAUNCHES.values()) == 0
 
 
+# msda_bwd_bf16's tiled kernel (Q == N: the queries are the levels' pixels in
+# order; a block serves a 4x8 tile of one level and merges its taps' rows per
+# round of 4 points). Levels that are no multiple of the tile (tail tiles),
+# every D (24: a spare thread in each group of 4; 48: two in each group of
+# 8), P (rounds of 4 points; odd P on the scalar path), encoder-like
+# locations and locations spread over a level of more than 512 pixels (a
+# bounding box wider than the merge window: one reduction per tap).
+TAIL_SHAPES = ((13, 21), (7, 11), (3, 5))     # N = 365; tails of 1 / 5, 3 / 3, 3 / 5
+WIDE_SHAPES = ((24, 41), (11, 19))            # N = 1193; 984 pixels at level 0
+BF16_TILED_GRID = [(D, P, shapes, mode) for D in (8, 16, 24, 32, 48, 64) for P in (1, 3, 4, 5)
+                   for shapes, mode in (("tail", "local"), ("wide", "uniform"))]
+
+
+@pytest.mark.parametrize("D,P,shapes,mode", BF16_TILED_GRID)
+def test_backward_bf16_tiled_over_the_input_grid(cuda_device, D, P, shapes, mode):
+    shapes = {"tail": TAIL_SHAPES, "wide": WIDE_SHAPES}[shapes]
+    N = sum(h * w for h, w in shapes)
+    B, H = 2, 3
+    loc = _inputs(B, N, H, D, P, shapes, mode, seed=D + P)[1]
+    _bwd_bf16_check(cuda_device, B, N, H, D, P, shapes, loc, seed=D * 10 + P)
+
+
+def test_backward_bf16_tiled_on_a_crowded_input(cuda_device):
+    """Every query of a level samples inside one 2x2 patch, so those rows sum
+    Q * P = 2092 taps of a (b, head) each, merged per tile (4 rows, 128 taps
+    a row) before their reductions."""
+    shapes = ((24, 40), (12, 21), (5, 7))
+    N = sum(h * w for h, w in shapes)
+    B, H, D, P = 2, 4, 32, 4
+    u = np.random.default_rng(11).uniform(0.05, 0.95, (B, N, H, len(shapes), P, 2))
+    size = np.array([[w, h] for h, w in shapes], dtype=np.float64)
+    loc = ((size // 2)[:, None] + u + 0.5) / size[:, None]
+    _bwd_bf16_check(cuda_device, B, N, H, D, P, shapes, loc.astype(np.float32), seed=12)
+
+
+@pytest.mark.parametrize("D,Q,P", [(32, 256, 4), (32, 257, 4), (16, 700, 4), (48, 300, 3),
+                                   (64, 1030, 1)])
+def test_backward_bf16_decoder_kernels_over_query_segments(cuda_device, D, Q, P):
+    """Q != N: the decoder sites' kernels. Their d(value) kernel stages at
+    most 256 queries and 1024 points at a time; past that its partial sums go
+    through the fp32 scratch (257 queries of 4 points: two segments; 1030 of
+    1: five)."""
+    shapes = WIDE_SHAPES
+    B, H = 2, 2
+    loc = np.random.default_rng(Q).uniform(-0.2, 1.2, (B, Q, H, 2, P, 2)).astype(np.float32)
+    _bwd_bf16_check(cuda_device, B, Q, H, D, P, shapes, loc, seed=Q + D)
+
+
 # Block-size launchers (the kernel tools): every block size and value type at
 # a tool-like level and at odd shapes, against the plain version; the same
 # tolerances as the main paths' launchers.

@@ -148,12 +148,54 @@ def test_backward_rejects_a_value_type_it_has_no_kernel_for(dtype):
 
 
 def test_bwd_split_finds_the_backward_scatter_in_the_source():
-    """``chip_smoke.py --bwd-split`` rewrites the backward kernel's d(value)
-    scatter by text (plain stores; nothing): the source holds it once."""
+    """``chip_smoke.py --bwd-split`` rewrites the backward kernels' d(value)
+    scatters by text (plain stores; nothing): the source holds msda_bwd_f32's
+    vector reductions once and msda_bwd_bf16's merged-row reductions once
+    (the earlier lane atomics not at all), and the bf16 entry point and tile
+    constants as the split's variants expect them."""
     import chip_smoke
     from mdqe_cvpr2023_tpu_torch.ops import _build
     src = (_build.CSRC / "ms_deform_attn.cu").read_text()
-    assert [src.count(sc[0]) for sc in chip_smoke.SCATTERS] == [1, 0]
+    assert [src.count(sc[0]) for sc in chip_smoke.SCATTERS] == [1, 0, 1]
+    assert src.count(chip_smoke.BF16_ENTRY) == 1 and src.count(chip_smoke.BF16_TILE_TEXT) == 1
+    for sc in chip_smoke.SCATTERS:  # no entry's text is part of another's
+        assert sum(sc[0] in other[0] for other in chip_smoke.SCATTERS) == 1
+
+
+def test_bwd_split_variants_find_their_constants():
+    """Each of ``--bwd-split``'s msda_bwd_bf16 variants replaces constants
+    that the source holds once, so every variant differs from the source."""
+    import chip_smoke
+    from mdqe_cvpr2023_tpu_torch.ops import _build
+    src = (_build.CSRC / "ms_deform_attn.cu").read_text()
+    for name, (tile, changes) in chip_smoke.BF16_VARIANTS.items():
+        assert changes and all(src.count(old) == 1 for old in changes), name
+        assert len(tile) == 2 and tile[0] * tile[1] >= 32, name
+
+
+def _square(D=32, dtype=torch.bfloat16):
+    """Inputs with Q == N (the encoder's layout, where msda_bwd_bf16 runs its
+    tiled kernel) on SHAPES."""
+    value, _, _ = _inputs(D=D, dtype=dtype)
+    loc = torch.rand(1, N, 2, 2, 4, 2)
+    return value, loc, torch.full((1, N, 2, 2, 4), 0.125), torch.zeros(1, N, 2 * D)
+
+
+@pytest.mark.parametrize("D", [8, 24, 48, 64])
+def test_backward_bf16_at_q_equal_n_reaches_the_device_check(D):
+    """The encoder's layout takes the same rules, D = 24 and 48 with spare
+    threads in their groups: CPU tensors then fail on the device check (no
+    fallback)."""
+    value, loc, attw, gout = _square(D=D)
+    with pytest.raises(ValueError, match="must be on"):
+        da.ms_deform_attn_bwd_cuda(value, SHAPES, loc, attw, gout)
+
+
+@pytest.mark.parametrize("D", [12, 20])
+def test_backward_bf16_at_q_equal_n_applies_the_d_rule(D):
+    value, loc, attw, gout = _square(D=D)
+    with pytest.raises(ValueError, match="D % 8"):
+        da.ms_deform_attn_bwd_cuda(value, SHAPES, loc, attw, gout)
 
 
 @pytest.mark.parametrize("which", ["a", "b"])
