@@ -1137,11 +1137,13 @@ def coco_full_width(da, card, swin=False, n_images=5):
     ``swin``; random weights from seed 0, the class head's bias zeroed so
     that scores pass the 0.05 threshold and the 100-detection slab fills, as
     a trained model's would): one 800x1200 image padded to 800x1216, original
-    size 480x720; a warm-up image, then ``n_images`` timed ones, then one
-    with stage timers. Returns the launches of the timed images."""
+    size 480x720; a warm-up image, then ``n_images`` timed ones, each
+    stage's host seconds of the last (the tracer's spans). Returns the
+    launches of the timed images."""
     from mdqe_cvpr2023_tpu_torch import configs
     from mdqe_cvpr2023_tpu_torch.models import meta
     from mdqe_cvpr2023_tpu_torch.models.detr import MDQEModel
+    from mdqe_cvpr2023_tpu_torch.utils import tracing
     cfg = configs.SWINL_COCO if swin else configs.R50_COCO
     inf = configs.R50_COCO_INF  # swinl_coco.yaml keeps R50_coco.yaml's post-processing
     ori = (480, 720)
@@ -1171,12 +1173,11 @@ def coco_full_width(da, card, swin=False, n_images=5):
     peak = torch.cuda.max_memory_allocated()
     s_img = sum(walls) / n_images
     n = len(out["scores"])
-    timers = {}
-    meta.inference_image(model, inf, frames, size, ori, timers=timers)
+    stages = tracing.last("image.infer").seconds()
     print(f"COCO inference: {', '.join(f'{w:.4f}' for w in walls)} s -> {s_img:.4f} s/image, "
           f"{1 / s_img:.3f} images/s ({card})")
-    print(f"stage host seconds of one more image (each ends in synchronize): "
-          f"{json.dumps({k: round(v, 4) for k, v in timers.items() if not k.endswith('_n')})}")
+    print(f"span host seconds of the last image (no synchronize; *.wait: the host "
+          f"waiting on the card): {json.dumps({k: round(v, 4) for k, v in stages.items()})}")
     print(f"peak device memory {peak / 2 ** 30:.2f} GiB")
     print(f"launches in {n_images} images: {json.dumps(launches)}")
     print(f"detections {n}, top scores {[round(x, 4) for x in out['scores'][:5]]}, "
@@ -1622,14 +1623,15 @@ def bwd_split(source):
 
 def vis_full_width(da, card, cfg, inf, n_frames, H, W, seed=0):
     """``inference_vis`` at full width on a synthetic video of ``n_frames``
-    HxW frames, random weights from ``seed``: a warm-up run, a timed run with
-    stage timers (clips/s, host seconds per stage, peak memory, launches per
+    HxW frames, random weights from ``seed``: a warm-up run, a timed run
+    (clips/s, the tracer's host seconds per span, peak memory, launches per
     call site, all > 0), then the crowded tracker (gates off, threshold 0:
     the tracker fills to max_num_instances). Returns the timed run's
     launches."""
     from mdqe_cvpr2023_tpu_torch.models import meta
     from mdqe_cvpr2023_tpu_torch.models.detr import MDQEModel
     from mdqe_cvpr2023_tpu_torch.tools.profile_vis import crowded
+    from mdqe_cvpr2023_tpu_torch.utils import tracing
     t0 = time.perf_counter()
     model = MDQEModel(cfg, device="cuda", seed=seed)
     print(f"model ({cfg.backbone}) built on the card in {time.perf_counter() - t0:.1f} s "
@@ -1644,18 +1646,18 @@ def vis_full_width(da, card, cfg, inf, n_frames, H, W, seed=0):
     print(f"warm-up run {time.perf_counter() - t0:.2f} s")
 
     torch.cuda.reset_peak_memory_stats()
-    timers = {}
     da.reset_launches()
     t0 = time.perf_counter()
-    out = meta.inference_vis(model, inf, frames, (H, W), (H, W), timers=timers)
+    out = meta.inference_vis(model, inf, frames, (H, W), (H, W))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(da.LAUNCHES)
     n_clips = (n_frames - inf.n_frames_test) // inf.clip_stride + 1
-    stages = {k: round(v, 4) for k, v in timers.items() if not k.endswith("_n")}
+    stages = {k: round(v, 4) for k, v in tracing.last("vis.video").seconds().items()}
     print(f"timed run {wall:.3f} s, {n_clips} clips -> {n_clips / wall:.3f} clips/s "
           f"({card})")
-    print(f"stage host seconds (each ends in synchronize): {json.dumps(stages)}")
+    print(f"span host seconds (no synchronize; *.wait: the host waiting on the card): "
+          f"{json.dumps(stages)}")
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     print(f"launches per call site: {json.dumps(launches)}")
     print(f"tracks {out['num_tracks']}, outputs {len(out['pred_scores'])}, "
@@ -1671,15 +1673,14 @@ def vis_full_width(da, card, cfg, inf, n_frames, H, W, seed=0):
     # occupancy-dependent work (assignment, finalize) is exercised too.
     crowd = crowded(inf)
     meta.inference_vis(model, crowd, frames, (H, W), (H, W))
-    crowd_timers = {}
     t0 = time.perf_counter()
-    out_c = meta.inference_vis(model, crowd, frames, (H, W), (H, W),
-                               timers=crowd_timers)
+    out_c = meta.inference_vis(model, crowd, frames, (H, W), (H, W))
     torch.cuda.synchronize()
     wall_c = time.perf_counter() - t0
+    crowd_stages = tracing.last("vis.video").seconds()
     print(f"crowded tracker: {out_c['num_tracks']} tracks, {wall_c:.3f} s -> "
-          f"{n_clips / wall_c:.3f} clips/s; stage host seconds "
-          f"{json.dumps({k: round(v, 4) for k, v in crowd_timers.items() if not k.endswith('_n')})}",
+          f"{n_clips / wall_c:.3f} clips/s; span host seconds "
+          f"{json.dumps({k: round(v, 4) for k, v in crowd_stages.items()})}",
           flush=True)
     check_outputs(out_c, n_frames, (H, W), cfg.num_classes)
     del model
@@ -2660,6 +2661,7 @@ def vis_sharded(da, card, cfg, inf, n_frames=36, H=360, W=640):
     shapes (each device's share)."""
     from mdqe_cvpr2023_tpu_torch.models import meta
     from mdqe_cvpr2023_tpu_torch.models.detr import MDQEModel
+    from mdqe_cvpr2023_tpu_torch.utils import tracing
     n = torch.cuda.device_count()
     devices = [f"cuda:{i}" for i in range(n)] if n > 1 else ["cuda:0", "cuda:0"]
     model = MDQEModel(cfg, device="cuda:0", seed=0)
@@ -2668,9 +2670,9 @@ def vis_sharded(da, card, cfg, inf, n_frames=36, H=360, W=640):
     n_clips = (n_frames - inf.n_frames_test) // inf.clip_stride + 1
     outs, rates, stages, first = {}, {}, {}, {}
     for name, devs in (("unsharded", None), ("sharded", devices)):
-        first[name] = {}
         meta.inference_vis(model, inf, frames, (H, W), (H, W), device="cuda:0",
-                           devices=devs, timers=first[name])
+                           devices=devs)
+        first[name] = tracing.last("vis.video").seconds()
         da.reset_launches()
         with recorded_sites(da) as seen:
             torch.cuda.synchronize()
@@ -2680,13 +2682,11 @@ def vis_sharded(da, card, cfg, inf, n_frames=36, H=360, W=640):
             torch.cuda.synchronize()
             rates[name] = n_clips / (time.perf_counter() - t0)
         launches = dict(da.LAUNCHES)
-        stages[name] = {}
-        meta.inference_vis(model, inf, frames, (H, W), (H, W), device="cuda:0",
-                           devices=devs, timers=stages[name])
-        print(f"{name}: first call's encode_weights {first[name]['encode_weights']:.4f} s "
-              f"(the sharded run builds the other devices' copies there); a later call's "
-              f"stage host seconds (each ends in a synchronize) "
-              f"{json.dumps({k: round(v, 4) for k, v in stages[name].items() if not k.endswith('_n')})}",
+        stages[name] = tracing.last("vis.video").seconds()
+        print(f"{name}: first call's vis.encode_weights {first[name]['vis.encode_weights']:.4f} "
+              f"s (the sharded run builds the other devices' copies there); a later call's "
+              f"span host seconds (no synchronize; *.wait: the host waiting on the card) "
+              f"{json.dumps({k: round(v, 4) for k, v in stages[name].items()})}",
               flush=True)
     got, want = outs["sharded"], outs["unsharded"]
     check_outputs(got, n_frames, (H, W), cfg.num_classes)

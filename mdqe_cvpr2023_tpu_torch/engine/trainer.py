@@ -26,6 +26,7 @@ predictions.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import time
@@ -45,7 +46,7 @@ from ..models.meta import inference_image, inference_vis, preprocess_frames
 from ..ops import deform_attn
 from ..parallel.train import (broadcast_parameters, make_optimizer, make_train_step,
                               shard_rows, state_sha256)
-from ..utils import dist
+from ..utils import dist, tracing
 from ..utils.misc import resolve_device
 from .build import (build_criterion_cfg, build_inference_cfg, build_model_cfg,
                     build_train_cfg)
@@ -223,9 +224,11 @@ class Trainer:
                 # the copy is queued on the step's stream: the step reads the
                 # batch only after it lands
                 batch = {k: v.to(self.device, non_blocking=True) for k, v in host.items()}
-                step_stats = {} if (self.iteration + 1) % log_every == 0 else None
-                total, ldict = self.step_fn(self.model, self.optimizer, batch, gen,
-                                            pri.to(self.device), step_stats)
+                # the logged step keeps its spans with the card's times
+                logged = (self.iteration + 1) % log_every == 0
+                with tracing.full_mode(device=True) if logged else contextlib.nullcontext():
+                    total, ldict = self.step_fn(self.model, self.optimizer, batch, gen,
+                                                pri.to(self.device))
                 self.iteration += 1
                 if prof is not None and self.iteration == profile_at + 3:
                     _stop_profile(prof, self.device, self.output_dir)
@@ -242,7 +245,9 @@ class Trainer:
                     row.update({k: float(v) for k, v in ldict.items()})
                     row.update(self._device_stats(launches))
                     row.update(world_size=self.world, dist_backend=dist.backend(),
-                               allreduce_s=step_stats.get("allreduce_s", 0.0))
+                               allreduce_s=tracing.span_s(tracing.last("train.step"),
+                                                          "train.allreduce"))
+                    tracing.clear_events()
                     launches = _launch_counts()
                     self._log(row)
                     if self.rank == 0:

@@ -15,6 +15,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..utils import tracing
 from ..utils.boxes import box_cxcywh_to_xyxy, box_xyxy_to_cxcywh
 from ..utils.misc import grid_sample, interpolate_bilinear, inverse_sigmoid
 from ..utils.nn import MLP, LayerNorm, Linear, MultiheadAttention, dropout
@@ -118,7 +119,8 @@ def inter_frame_query_association(cfg: DecoderCfg, query_init, query_coords,
     w = cfg.window_inter_frame_asso if training else cfg.window_inter_frame_asso / 2
     emb = query_embed.reshape(B, n_frames, Q, -1)
     sim = torch.einsum("btqc,bkc->btqk", emb, emb[:, ct])
-    relpos = torch.from_numpy(query_relpos_grid(cfg.n_query_bins)).to(sim.device)
+    with tracing.wait("decoder.relpos.wait"):   # an upload: it synchronizes
+        relpos = torch.from_numpy(query_relpos_grid(cfg.n_query_bins)).to(sim.device)
     masked = []
     for t in range(n_frames):
         itv = max(t - ct, ct - t)
@@ -224,9 +226,11 @@ class DecoderLayer(nn.Module):
         x_inst2 = (torch.softmax(tw.float(), 1).to(sx.dtype) * sx).sum(1)
         if cfg.use_tca:
             frames = tca_frames(T, cfg.n_frames)
-            srcs_t = src.reshape(B, T, -1, C)[:, frames]
-            pm_t = (padding_mask.reshape(B, T, -1)[:, frames]
-                    if padding_mask is not None else None)
+            # a list index is uploaded, which synchronizes
+            with tracing.wait("decoder.tca.wait", syncs=1 + (padding_mask is not None)):
+                srcs_t = src.reshape(B, T, -1, C)[:, frames]
+                pm_t = (padding_mask.reshape(B, T, -1)[:, frames]
+                        if padding_mask is not None else None)
             if len(frames) < cfg.n_frames:
                 pad = cfg.n_frames - len(frames)
                 srcs_t = torch.cat([srcs_t] + [srcs_t[:, -1:]] * pad, 1)

@@ -16,16 +16,24 @@ window encode by frames: one process, each chunk's frames split evenly over
 the devices, each device encoding its share with its own copy of the
 weights, and the three outputs gathered onto the first device, where the
 decoder, the tracker and the finalize run.
+
+Both record on the port's tracer (``utils/tracing.py``): ``inference_vis``
+is the request ``vis.video`` with spans ``vis.encode_weights``,
+``vis.upload``, ``vis.encode``, ``vis.decode``, ``vis.track`` (with
+``vis.track.assign`` and the waits of ``tracker_step``), ``vis.window``,
+``vis.finalize`` and ``vis.merge``, a ``*.wait`` span around every read of
+a device tensor and every upload from host memory (each synchronizes the
+stream), and the counters ``vis.clips`` and ``vis.lsa_cells``;
+``inference_image`` is the request ``image.infer`` with ``image.upload``,
+``image.forward``, ``image.post`` and ``image.host``.
 """
 from __future__ import annotations
 
-import contextlib
 import copy
 import itertools
-import time
 import weakref
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -34,6 +42,7 @@ from torch import nn
 from ..tracking.device_tracker import (TrackerCfg, tracker_state_init,
                                        tracker_step, tracker_window_average)
 from ..tracking.mask_memory import finalize_from_avg, packbits
+from ..utils import tracing
 from ..utils.boxes import box_iou, masks_to_boxes
 from ..utils.misc import aligned_bilinear, resolve_device
 from .detr import (DeformableDETR, MDQEModel, MDQEModelCfg, detr_apply_coco, detr_encode,
@@ -99,7 +108,8 @@ def postprocess_clip(cls_probs, mask_coeff, query_embeds, mask_feats,
     S, Q, K = cls_probs.shape
     T = mask_feats.shape[1]
     dev = cls_probs.device
-    neg = torch.tensor(-1e9, dtype=torch.float32, device=dev)
+    with tracing.wait("vis.decode.wait"):   # an upload: it synchronizes
+        neg = torch.tensor(-1e9, dtype=torch.float32, device=dev)
 
     # stage 1: keep >= min(thres, best)
     base = cls_probs.amax(-1)
@@ -241,9 +251,10 @@ def _encoders(model: MDQEModel, devices, bf16_encode: bool, pixel_mean, pixel_st
                 kept = copies[d] = (version, enc,
                                     _bf16_encode_params(enc) if bf16_encode else None)
             _, enc, bf16 = kept
-        by_device[d] = (enc, bf16,
-                        torch.tensor(pixel_mean, dtype=torch.float32, device=d),
-                        torch.tensor(pixel_std, dtype=torch.float32, device=d))
+        with tracing.wait("vis.encode_weights.wait", syncs=2):
+            by_device[d] = (enc, bf16,
+                            torch.tensor(pixel_mean, dtype=torch.float32, device=d),
+                            torch.tensor(pixel_std, dtype=torch.float32, device=d))
     return [by_device[d] for d in devices]
 
 
@@ -253,7 +264,8 @@ def decode_clips_batched(model: MDQEModel, window_encoded, window_mask_flat,
     """Decode the S clips starting at ``offsets`` (frames within the window) in
     one batch of S * n_frames frames; returns the (S, ...) slabs."""
     idx = [o + t for o in offsets for t in range(n_frames)]
-    idx = torch.as_tensor(idx, device=window_encoded.device)
+    with tracing.wait("vis.decode.wait"):
+        idx = torch.as_tensor(idx, device=window_encoded.device)
     S = len(offsets)
     enc = window_encoded.index_select(0, idx)
     mfl = window_mask_flat.index_select(0, idx)
@@ -264,32 +276,12 @@ def decode_clips_batched(model: MDQEModel, window_encoded, window_mask_flat,
                             apply_cls_thres, topk, dedup_sim)
 
 
-class _Stages:
-    """Host time per stage. With a dict, each stage ends in a device
-    synchronize so its time covers its device work; without one, no-op."""
-
-    def __init__(self, timers: Optional[dict], device: torch.device):
-        self.timers = timers
-        self.device = device
-
-    @contextlib.contextmanager
-    def __call__(self, name: str):
-        if self.timers is None:
-            yield
-            return
-        t0 = time.perf_counter()
-        yield
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        self.timers[name] = self.timers.get(name, 0.0) + time.perf_counter() - t0
-        self.timers[name + "_n"] = self.timers.get(name + "_n", 0) + 1
-
-
 def _finalize_rows(window_out, rows, inf_cfg: InferenceCfg, image_size, ori_size):
     """Bit-packed masks (len(rows), len_frames, oh, ceil(ow/8)) of the given
     rows of a window's average slab, on the device."""
     _, _, avg, len_frames = window_out
-    idx = torch.as_tensor(rows, device=avg.device)
+    with tracing.wait("vis.finalize.wait"):
+        idx = torch.as_tensor(rows, device=avg.device)
     parts = [finalize_from_avg(avg.index_select(0, idx[c:c + FINALIZE_CHUNK]),
                                inf_cfg.match_stride, image_size, ori_size)
              for c in range(0, len(rows), FINALIZE_CHUNK)]
@@ -317,15 +309,14 @@ def inference_video(pred_cls_clips):
 def inference_vis(model: MDQEModel, inf_cfg: InferenceCfg, frames: np.ndarray,
                   image_size: Tuple[int, int], ori_size: Tuple[int, int],
                   pixel_mean=(123.675, 116.28, 103.53),
-                  pixel_std=(58.395, 57.12, 57.375), device=None,
-                  timers: Optional[dict] = None, devices=None):
+                  pixel_std=(58.395, 57.12, 57.375), device=None, devices=None):
     """Near-online VIS on one video.
 
     frames: (T, Hp, Wp, 3) padded uint8 on the host; image_size: true (h, w)
     before padding; ori_size: the video's original (h, w). Runs on the card
-    unless ``device="cpu"``; the model must be on that device. ``timers``: a
-    dict that receives host seconds per stage (each stage then ends in a
-    device synchronize). ``devices`` (a list, which may repeat a device):
+    unless ``device="cpu"``; the model must be on that device. One request
+    ``vis.video`` of the tracer, with attrs ``clips``, ``windows`` and
+    ``frames``. ``devices`` (a list, which may repeat a device):
     the window encode is sharded by frames over them, the encode chunk
     rounded up to a multiple of their number; everything else runs on the
     first, where the model must be (and which ``device``, if given, must
@@ -346,7 +337,13 @@ def inference_vis(model: MDQEModel, inf_cfg: InferenceCfg, frames: np.ndarray,
     # encoder run in bf16 under bf16_encode.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    stage = _Stages(timers, dev)
+    with tracing.request("vis.video", device=dev, frames=int(frames.shape[0])) as req:
+        return _inference_vis(req, model, inf_cfg, frames, image_size, ori_size,
+                              pixel_mean, pixel_std, dev, devices)
+
+
+def _inference_vis(req, model, inf_cfg, frames, image_size, ori_size, pixel_mean,
+                   pixel_std, dev, devices):
     model_cfg = model.cfg
 
     T_clip = inf_cfg.n_frames_test
@@ -357,7 +354,7 @@ def inference_vis(model: MDQEModel, inf_cfg: InferenceCfg, frames: np.ndarray,
     W_win = inf_cfg.n_frames_window_test
     stride = inf_cfg.clip_stride
     shapes = spatial_shapes_for(model_cfg, frames.shape[1:3])
-    with stage("encode_weights"):
+    with tracing.span("vis.encode_weights"):
         encoders = _encoders(model, devices or [dev], inf_cfg.bf16_encode,
                              pixel_mean, pixel_std)
 
@@ -392,12 +389,15 @@ def inference_vis(model: MDQEModel, inf_cfg: InferenceCfg, frames: np.ndarray,
         schedule.append((start_idx, start_eff, wstart, wend))
         if start_idx + T_clip >= video_len:
             break
+    req.attrs.update(clips=len(schedule), windows=len({s[2:] for s in schedule}))
+    tracing.count("vis.clips", len(schedule))
 
     # even frame sharding: the chunk is a multiple of the number of devices
     chunk = -(-max(int(inf_cfg.encode_chunk), 1) // len(encoders)) * len(encoders)
     share = chunk // len(encoders)
-    sizes = [torch.tensor([list(image_size)] * share, dtype=torch.int32, device=e[2].device)
-             for e in encoders]
+    with tracing.wait("vis.upload.wait", syncs=len(encoders)):
+        sizes = [torch.tensor([list(image_size)] * share, dtype=torch.int32,
+                              device=e[2].device) for e in encoders]
     window = {}  # the current window only: clips visit windows in order
 
     def get_window(ws, we):
@@ -409,11 +409,14 @@ def inference_vis(model: MDQEModel, inf_cfg: InferenceCfg, frames: np.ndarray,
                 wf = np.concatenate([wf] + [wf[-1:]] * (wlen - wf.shape[0]))
             parts = []
             for c0 in range(0, wlen, chunk):
-                with stage("upload"):
-                    f = [torch.from_numpy(np.ascontiguousarray(
-                        wf[c0 + k * share:c0 + (k + 1) * share])).to(e[2].device)
-                        for k, e in enumerate(encoders)]
-                with stage("encode"):
+                with tracing.span("vis.upload"):
+                    f = []
+                    for k, e in enumerate(encoders):
+                        host = torch.from_numpy(np.ascontiguousarray(
+                            wf[c0 + k * share:c0 + (k + 1) * share]))
+                        with tracing.wait("vis.upload.wait"):
+                            f.append(host.to(e[2].device))
+                with tracing.span("vis.encode"):
                     # every device's share is issued before any is gathered
                     outs = [encode_window(enc, fk, sk, mean, std, shapes, bf16)
                             for fk, sk, (enc, bf16, mean, std) in zip(f, sizes, encoders)]
@@ -439,7 +442,8 @@ def inference_vis(model: MDQEModel, inf_cfg: InferenceCfg, frames: np.ndarray,
         f0 = max(frame_idx[0] - start_frame, 0)
         ov = tuple(f in saved_idx and f >= start_frame for f in frame_idx)
         if ov not in overlap_cache:
-            overlap_cache[ov] = torch.tensor(ov, dtype=torch.bool, device=dev)
+            with tracing.wait("vis.overlap.wait"):
+                overlap_cache[ov] = torch.tensor(ov, dtype=torch.bool, device=dev)
 
         g, j = batch_of_clip[i]
         if g not in batch_res:
@@ -451,13 +455,13 @@ def inference_vis(model: MDQEModel, inf_cfg: InferenceCfg, frames: np.ndarray,
             offs = [min(max(schedule[k][1] - ws, 0), enc.shape[0] - T_clip)
                     for k in idxs]
             offs += [offs[-1]] * (S_BATCH - len(offs))
-            with stage("decode"):
+            with tracing.span("vis.decode"):
                 res = decode_clips_batched(model, enc, mflat, maskf, offs, shapes,
                                            T_clip, inf_cfg.apply_cls_thres,
                                            inf_cfg.clip_topk, inf_cfg.dedup_sim)
             batch_res = {g: res}
         res = batch_res[g]
-        with stage("track"):
+        with tracing.span("vis.track"):
             state = tracker_step(state, tr_cfg, res["scores"][j], res["cls_probs"][j],
                                  res["masks"][j], res["query_embeds"][j],
                                  res["valid"][j], f0, overlap_cache[ov])
@@ -467,16 +471,17 @@ def inference_vis(model: MDQEModel, inf_cfg: InferenceCfg, frames: np.ndarray,
         if is_last_clip or is_output:
             n_valid = max(saved_idx) - start_frame + 1
             len_frames = W_win if not is_last_clip else int(n_valid)
-            with stage("window"):
+            with tracing.span("vis.window"):
                 out_cls, num_inst, avg, state = tracker_window_average(
                     state, tr_cfg, is_last_clip)
             window_outputs.append((out_cls, num_inst, avg, len_frames))
             # defer mask finalization to the video end while the slabs fit
             # the budget; past it the oldest window finalizes all live rows
             if len(window_outputs) > keep_slabs:
-                with stage("finalize"):
+                with tracing.span("vis.finalize"):
                     wo = window_outputs.pop(0)
-                    n = int(wo[1])
+                    with tracing.wait("vis.finalize.wait"):
+                        n = int(wo[1])
                     packed = (_finalize_rows(wo, list(range(n)), inf_cfg,
                                              image_size, ori_size) if n else None)
                     finalized.append((wo[0], n, packed, wo[3]))
@@ -489,12 +494,13 @@ def inference_vis(model: MDQEModel, inf_cfg: InferenceCfg, frames: np.ndarray,
 
     # video end: select first (tiny class scores, one host read), then
     # materialize masks of the selected rows only
-    with stage("merge"):
+    with tracing.span("vis.merge"):
         pend_cls = [fin[0] for fin in finalized] + [wo[0] for wo in window_outputs]
         pend_num = [wo[1] for wo in window_outputs]
-        packed_host = torch.cat([c.reshape(-1).float() for c in pend_cls]
-                                + [torch.stack(pend_num).float().reshape(-1)]
-                                ).cpu().numpy()
+        packed_dev = torch.cat([c.reshape(-1).float() for c in pend_cls]
+                               + [torch.stack(pend_num).float().reshape(-1)])
+        with tracing.wait("vis.merge.wait"):
+            packed_host = packed_dev.cpu().numpy()
         cls_sz = [c.numel() for c in pend_cls]
         offs = np.concatenate([[0], np.cumsum(cls_sz)]).astype(np.int64)
         counts = packed_host[offs[-1]:]
@@ -515,12 +521,18 @@ def inference_vis(model: MDQEModel, inf_cfg: InferenceCfg, frames: np.ndarray,
         win_masks = []  # per window: {row: (L, oh, pw) uint8}
         for (kind, n, src), len_frames in zip(win_src, win_len):
             if kind == "full":
-                host = src.cpu().numpy() if n else None
+                host = None
+                if n:
+                    with tracing.wait("vis.merge.wait"):
+                        host = src.cpu().numpy()
                 win_masks.append({r: host[r] for r in range(n)})
             else:
                 rows = [r for r in sel_rows if r < n]
-                host = (_finalize_rows(src, rows, inf_cfg, image_size,
-                                       ori_size).cpu().numpy() if rows else None)
+                host = None
+                if rows:
+                    packed = _finalize_rows(src, rows, inf_cfg, image_size, ori_size)
+                    with tracing.wait("vis.merge.wait"):
+                        host = packed.cpu().numpy()
                 win_masks.append({r: host[a] for a, r in enumerate(rows)})
 
         ow = ori_size[1]
@@ -542,7 +554,7 @@ def inference_vis(model: MDQEModel, inf_cfg: InferenceCfg, frames: np.ndarray,
 
 
 def coco_device_stage(model: MDQEModel, inf_cfg: InferenceCfg, image_u8, image_size,
-                      pixel_mean, pixel_std, stage=None):
+                      pixel_mean, pixel_std):
     """All device work of COCO image inference (``_coco_device_stage`` of the
     JAX package): normalize, the fp32 forward, aligned-bilinear upsample of
     the centre frame's mask logits with the padding masked out, mask-quality
@@ -554,20 +566,19 @@ def coco_device_stage(model: MDQEModel, inf_cfg: InferenceCfg, image_u8, image_s
     The full-size logits (Q, Hp, Wp) fp32 are made ``COCO_ROW_CHUNK`` queries
     at a time; only the binary masks (one byte a pixel) exist for all queries.
     Ties in the top-D slab go to the lower index, as ``lax.top_k`` breaks
-    them. ``stage`` (a ``_Stages``) times the forward and the
-    post-processing. Returns scores (D,), labels (D,), valid (D,) (a prefix)
+    them. Spans ``image.forward`` and ``image.post``. Returns scores (D,), labels (D,), valid (D,) (a prefix)
     and packed masks (D, Hp, ceil(Wp/8)) uint8."""
     T = image_u8.shape[0]
     dev = image_u8.device
-    stage = stage or _Stages(None, dev)
-    with stage("forward"):
+    with tracing.span("image.forward"):
         norm = (image_u8.float() - pixel_mean) / pixel_std
-        sizes = torch.tensor([list(image_size)] * T, dtype=torch.int32, device=dev)
+        with tracing.wait("image.forward.wait"):
+            sizes = torch.tensor([list(image_size)] * T, dtype=torch.int32, device=dev)
         out = detr_apply_coco(model.detr, norm, sizes, T)
         cls = out["cls"][0].float()                 # (Q, K) sigmoid
         m4 = out["masks"][0][:, (T - 1) // 2]       # (Q, h4, w4) logits, centre frame
         del out
-    with stage("post"):
+    with tracing.span("image.post"):
         return _coco_post(cls, m4, inf_cfg, image_size)
 
 
@@ -628,8 +639,7 @@ def _coco_post(cls, m4, inf_cfg: InferenceCfg, image_size):
 def inference_image(model: MDQEModel, inf_cfg: InferenceCfg, image: np.ndarray,
                     image_size: Tuple[int, int], ori_size: Tuple[int, int],
                     pixel_mean=(123.675, 116.28, 103.53),
-                    pixel_std=(58.395, 57.12, 57.375), device=None,
-                    timers: Optional[dict] = None):
+                    pixel_std=(58.395, 57.12, 57.375), device=None):
     """COCO-style instance segmentation of one image, as a one-frame clip
     (``inference_image`` of the JAX package).
 
@@ -638,8 +648,8 @@ def inference_image(model: MDQEModel, inf_cfg: InferenceCfg, image: np.ndarray,
     w). Runs on the card unless ``device="cpu"``; the model must be on that
     device. Masks are binarized at model resolution on the device and
     nearest-resized to the original size on the host (index floor(i * h /
-    oh)). ``timers``: a dict that receives host seconds per stage (upload,
-    forward, post, host; each device stage then ends in a synchronize).
+    oh)). One request ``image.infer`` of the tracer, with spans
+    ``image.upload``, ``image.forward``, ``image.post`` and ``image.host``.
     Returns {scores, classes, masks (n, oh, ow) bool, boxes (n, 4) xyxy pixel
     fp32}."""
     dev = resolve_device(device)
@@ -648,19 +658,29 @@ def inference_image(model: MDQEModel, inf_cfg: InferenceCfg, image: np.ndarray,
     # full fp32 products and convolutions, as the JAX package's COCO stage
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    stage = _Stages(timers, dev)
-    with stage("upload"):
-        img = torch.from_numpy(np.ascontiguousarray(image)).to(dev)
-        mean = torch.tensor(pixel_mean, dtype=torch.float32, device=dev)
-        std = torch.tensor(pixel_std, dtype=torch.float32, device=dev)
+    with tracing.request("image.infer", device=dev):
+        return _inference_image(model, inf_cfg, image, image_size, ori_size, pixel_mean,
+                                pixel_std, dev)
+
+
+def _inference_image(model, inf_cfg, image, image_size, ori_size, pixel_mean, pixel_std,
+                     dev):
+    with tracing.span("image.upload"):
+        host = torch.from_numpy(np.ascontiguousarray(image))
+        with tracing.wait("image.upload.wait", syncs=3):
+            img = host.to(dev)
+            mean = torch.tensor(pixel_mean, dtype=torch.float32, device=dev)
+            std = torch.tensor(pixel_std, dtype=torch.float32, device=dev)
     top_s, labels, valid, packed = coco_device_stage(model, inf_cfg, img, image_size,
-                                                     mean, std, stage)
-    with stage("host"):
-        n = int(valid.sum())
-        scores = top_s[:n].cpu().numpy()
-        labels = labels[:n].cpu().numpy()
+                                                     mean, std)
+    with tracing.span("image.host"):
+        with tracing.wait("image.host.wait", syncs=4):
+            n = int(valid.sum())
+            scores = top_s[:n].cpu().numpy()
+            labels = labels[:n].cpu().numpy()
+            packed = packed[:n].cpu().numpy()
         W = image.shape[2]
-        masks = np.unpackbits(packed[:n].cpu().numpy(), axis=-1)[..., :W].astype(bool)
+        masks = np.unpackbits(packed, axis=-1)[..., :W].astype(bool)
         masks = masks[:, :image_size[0], :image_size[1]]
 
         oh, ow = int(ori_size[0]), int(ori_size[1])

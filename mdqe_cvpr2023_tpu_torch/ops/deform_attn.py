@@ -17,8 +17,10 @@ launches ``msda_fwd_*`` and whose backward launches ``msda_bwd_f32`` (fp32
 value) or ``msda_bwd_bf16`` (bf16 value: the mixed-precision training step);
 it never falls back. Each call site keeps its own forward launch count in
 ``LAUNCHES`` and backward launch counts in ``BWD_LAUNCHES`` (fp32) and
-``BWD_BF16_LAUNCHES`` (bf16), raised only where the kernel is launched.
-``ms_deform_attn_cuda_block`` launches the forward kernel at a chosen block
+``BWD_BF16_LAUNCHES`` (bf16), raised only where the kernel is launched; the
+three dicts are registered with the port's tracer, so that each request
+carries its launches as ``msda.fwd.<site>``, ``msda.bwd.<site>`` and
+``msda.bwd_bf16.<site>``. ``ms_deform_attn_cuda_block`` launches the forward kernel at a chosen block
 size for the kernel tools, counted in ``BLOCK_LAUNCHES``. The backward
 kernels sum d(value) in fp32: ``msda_bwd_f32`` with 16-byte vector atomics
 per tap; ``msda_bwd_bf16`` at the encoder (Q == N) merges each tile's taps
@@ -37,11 +39,14 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
+from ..utils import tracing
 from . import _build
 
-LAUNCHES = {"encoder": 0, "decoder_box": 0, "decoder_inst": 0}
-BWD_LAUNCHES = {"encoder": 0, "decoder_box": 0, "decoder_inst": 0}
-BWD_BF16_LAUNCHES = {"encoder": 0, "decoder_box": 0, "decoder_inst": 0}
+LAUNCHES = tracing.register("msda.fwd", {"encoder": 0, "decoder_box": 0, "decoder_inst": 0})
+BWD_LAUNCHES = tracing.register("msda.bwd",
+                                {"encoder": 0, "decoder_box": 0, "decoder_inst": 0})
+BWD_BF16_LAUNCHES = tracing.register("msda.bwd_bf16",
+                                     {"encoder": 0, "decoder_box": 0, "decoder_inst": 0})
 VALUE_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 BLOCK_THREADS = (64, 128, 256, 512)
 # launches of the block-size launchers (the kernel tools), per value type and

@@ -22,9 +22,8 @@ from __future__ import annotations
 import functools
 import hashlib
 import itertools
-import time
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -32,6 +31,7 @@ import torch
 from ..losses.criterion import CriterionCfg, criterion_apply
 from ..models.decoder import query_relpos_grid
 from ..models.detr import MDQEModel, MDQEModelCfg, detr_apply_backbone
+from ..utils import tracing
 from ..utils.misc import interpolate_bilinear
 
 
@@ -160,17 +160,20 @@ def loss_fn(model: MDQEModel, crit_cfg: CriterionCfg, batch, generator=None,
     weighted losses), fp32."""
     images = batch["images"]
     dev = images.device
-    mean = torch.tensor(pixel_mean, dtype=torch.float32, device=dev)
-    std = torch.tensor(pixel_std, dtype=torch.float32, device=dev)
-    images = (images.float() - mean) / std
-    out = detr_apply_backbone(model.detr, images, batch["image_sizes"],
-                              crit_cfg.n_frames, dropout_rate, generator, amp)
-    match_masks, masks8 = prepare_targets_device(batch["masks"], images.shape[1:3],
-                                                 match_stride)
-    targets = {"labels": batch["labels"], "ids": batch["ids"], "boxes": batch["boxes"],
-               "valid": batch["valid"], "match_masks": match_masks, "masks8": masks8}
-    return criterion_apply(crit_cfg, out, targets, _relpos(crit_cfg.n_query, str(dev)),
-                           generator, reid_priorities, amp, group)
+    with tracing.span("train.forward"):
+        with tracing.wait("train.forward.wait", syncs=2):   # uploads: they synchronize
+            mean = torch.tensor(pixel_mean, dtype=torch.float32, device=dev)
+            std = torch.tensor(pixel_std, dtype=torch.float32, device=dev)
+        images = (images.float() - mean) / std
+        out = detr_apply_backbone(model.detr, images, batch["image_sizes"],
+                                  crit_cfg.n_frames, dropout_rate, generator, amp)
+    with tracing.span("train.criterion"):
+        match_masks, masks8 = prepare_targets_device(batch["masks"], images.shape[1:3],
+                                                     match_stride)
+        targets = {"labels": batch["labels"], "ids": batch["ids"], "boxes": batch["boxes"],
+                   "valid": batch["valid"], "match_masks": match_masks, "masks8": masks8}
+        return criterion_apply(crit_cfg, out, targets, _relpos(crit_cfg.n_query, str(dev)),
+                               generator, reid_priorities, amp, group)
 
 
 BUCKET_BYTES = 25 * 2 ** 20  # gradient bytes per all-reduce
@@ -270,7 +273,7 @@ def make_train_step(crit_cfg: CriterionCfg, dropout_rate: float = 0.1,
                     match_stride: int = MATCH_STRIDE, pixel_mean=PIXEL_MEAN,
                     pixel_std=PIXEL_STD, amp: bool = False, group=None):
     """Returns ``train_step(model, optimizer, batch, generator,
-    reid_priorities=None, stats=None) -> (total, loss_dict)``: one optimizer
+    reid_priorities=None) -> (total, loss_dict)``: one optimizer
     step. The batch's tensors and ``generator`` (dropout masks and reid
     priorities) are on the model's device. fp32 matmuls and convolutions run
     in full fp32 (TF32 off); with ``amp`` the forward runs on bf16 copies of
@@ -283,41 +286,38 @@ def make_train_step(crit_cfg: CriterionCfg, dropout_rate: float = 0.1,
     criterion takes the global denominators, the gradients are averaged
     over the group after the backward and before the clip, and the returned
     losses are the ranks' mean (the global-batch loss; for logging, they do
-    not enter the backward). ``stats``, a dict, receives ``allreduce_s``, the
-    host seconds of the gradient reduction between two synchronizes, and
-    ``allreduce_bytes``."""
+    not enter the backward).
+
+    Each call is one request ``train.step`` of the tracer
+    (``utils/tracing.py``), with spans ``train.loss`` (``loss_fn``: its
+    ``train.forward`` and ``train.criterion``), ``train.backward``,
+    ``train.allreduce`` (with ``group``; the bytes reduced in the counter
+    ``train.allreduce_bytes``) and ``train.optimizer`` (the clip and
+    AdamW)."""
 
     def train_step(model: MDQEModel, optimizer: _Optimizer, batch, generator,
-                   reid_priorities=None, stats: Optional[dict] = None):
+                   reid_priorities=None):
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        optimizer.zero_grad()
-        total, ldict = loss_fn(model, crit_cfg, batch, generator, dropout_rate,
-                               reid_priorities, match_stride, pixel_mean, pixel_std, amp,
-                               group)
-        total.backward()
-        if group is not None:
-            dev = total.device
-            if stats is not None:
-                _synchronize(dev)
-                t0 = time.perf_counter()
-            nbytes = allreduce_gradients(model, group)
-            if stats is not None:
-                _synchronize(dev)
-                stats["allreduce_s"] = time.perf_counter() - t0
-                stats["allreduce_bytes"] = nbytes
-        optimizer.step()
-        if group is not None:
-            total, *means = allreduce_mean([total, *ldict.values()], group)
-            ldict = dict(zip(ldict, means))
-        return total.detach(), {k: v.detach() for k, v in ldict.items()}
+        with tracing.request("train.step", device=batch["images"].device):
+            optimizer.zero_grad()
+            with tracing.span("train.loss"):
+                total, ldict = loss_fn(model, crit_cfg, batch, generator, dropout_rate,
+                                       reid_priorities, match_stride, pixel_mean, pixel_std,
+                                       amp, group)
+            with tracing.span("train.backward"):
+                total.backward()
+            if group is not None:
+                with tracing.span("train.allreduce"):
+                    tracing.count("train.allreduce_bytes", allreduce_gradients(model, group))
+            with tracing.span("train.optimizer"):
+                optimizer.step()
+            if group is not None:
+                total, *means = allreduce_mean([total, *ldict.values()], group)
+                ldict = dict(zip(ldict, means))
+            return total.detach(), {k: v.detach() for k, v in ldict.items()}
 
     return train_step
-
-
-def _synchronize(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 # The full-width R50 training geometry on one card: the largest bucket of

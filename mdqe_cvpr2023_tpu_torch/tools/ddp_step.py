@@ -9,8 +9,10 @@ rows of the global batch and of the priorities (``shard_rows``) and runs the
 steps with ``make_train_step(group=...)``; it writes
 ``<out>/<case>_rank<r>.json``: each step's all-reduced total and losses, its
 kernel launches per call site (forward, fp32 backward, bf16 backward), its
-host seconds (ending in a synchronize), ``allreduce_s`` and the gradient
-bytes reduced; the SHA-256 of the rank's whole state after the first and the
+host seconds (ending in a synchronize), and from the tracer's
+``train.allreduce`` span ``allreduce_s`` (the card's time, each step in the
+tracer's full mode with device timing; the host's on the CPU) and the
+gradient bytes reduced (``train.allreduce_bytes``); the SHA-256 of the rank's whole state after the first and the
 last step; the rank's peak device memory. Rank 0 also writes its state
 after the first step (``<case>_step1.pt``). Run with no
 process group (``run_case(group=None)``) it is the one-process step on the
@@ -41,7 +43,7 @@ from ..losses.criterion import CriterionCfg
 from ..models.detr import MDQEModel, MDQEModelCfg
 from ..ops import deform_attn
 from ..parallel import train as ptrain
-from ..utils import dist
+from ..utils import dist, tracing
 from ..utils.misc import resolve_device
 
 
@@ -86,12 +88,19 @@ def run_case(spec, case, device, group=None):
     steps, first = [], None
     for i in range(int(case["steps"])):
         deform_attn.reset_launches()
-        stats = {}
         t0 = time.perf_counter()
-        total, ldict = step(model, opt, rows, gen, pri_dev, stats)
+        with tracing.full_mode(device=True):
+            total, ldict = step(model, opt, rows, gen, pri_dev)
         total = float(total)  # waits for the step
+        s = time.perf_counter() - t0
+        req = tracing.last("train.step")
+        stats = {}
+        if group is not None:
+            stats = {"allreduce_s": tracing.span_s(req, "train.allreduce"),
+                     "allreduce_bytes": req.counters.get("train.allreduce_bytes", 0)}
+        tracing.clear_events()
         steps.append({"total": total, "losses": {k: float(v) for k, v in ldict.items()},
-                      "launches": _launches(), "s": time.perf_counter() - t0, **stats})
+                      "launches": _launches(), "s": s, **stats})
         if i == 0:
             first = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
             sha_step1 = ptrain.state_sha256(model)

@@ -7,8 +7,10 @@ Runs ``inference_vis`` at the full-width configuration of ``chip_smoke.py``
 v2, 2-frame clips, 20-frame windows, 480x854; random weights from a seed) on
 a 36-frame synthetic video, for the
 reference gates and for the crowded tracker (gates off, the tracker fills to
-120 instances). For each it prints the wall time and clips/s, the host
-seconds per stage (each stage ending in a synchronize), and from one run under
+120 instances). For each it prints the wall time and clips/s, the seconds
+per stage on the card's timeline (``stage_s``: the spans of one run in the
+port tracer's full mode with device timing) and on the host's
+(``stage_host_s``: the same run's spans, waits included), and from one run under
 ``torch.profiler``: the device-busy share (union of kernel intervals over the
 run's wall time), the device time, the forward deformable-attention kernel's
 part of it, and the kernels by total device time (user annotations left out).
@@ -20,7 +22,7 @@ With ``--devices cuda:0,cuda:1,...`` each variant also runs with the window
 encode sharded by frames over those devices (``inference_vis(devices=)``),
 beside the unsharded run, and the profile adds each device's busy share;
 the sharded run's first call (which builds the other devices' copies of the
-encode weights) reports its ``encode_weights`` seconds apart.
+encode weights) reports its ``vis.encode_weights`` host seconds apart.
 
 Usage: python3 -m mdqe_cvpr2023_tpu_torch.tools.profile_vis [--runs N]
            [--backbone r50|swinl] [--devices cuda:0,cuda:1,...]
@@ -40,6 +42,7 @@ import torch
 from .. import configs
 from ..models import meta
 from ..models.detr import MDQEModel, MDQEModelCfg
+from ..utils import tracing
 
 CFG = MDQEModelCfg(backbone="resnet50", num_classes=25, hidden_dim=256, n_heads=8,
                    enc_layers=6, dec_layers=6, n_frames=4, n_query=196,
@@ -155,8 +158,8 @@ def main():
         for sharding, devices in shardings:
             run = functools.partial(meta.inference_vis, model, inf, frames, (H, W), (H, W),
                                     devices=devices)
-            first = {}
-            run(timers=first)  # warm-up
+            run()  # warm-up
+            first = tracing.last("vis.video").seconds()
             walls = []
             for _ in range(args.runs):
                 torch.cuda.synchronize()
@@ -164,8 +167,13 @@ def main():
                 out = run()
                 torch.cuda.synchronize()
                 walls.append(time.perf_counter() - t0)
-            timers = {}
-            run(timers=timers)
+            torch.cuda.synchronize()
+            with tracing.full_mode(device=True):
+                run()
+            torch.cuda.synchronize()
+            req = tracing.last("vis.video")
+            stage_s = {k: v / 1e3 for k, v in tracing.device_ms(tracing.events(req.id)).items()}
+            tracing.clear_events()
             acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
             with torch.profiler.profile(activities=acts) as prof:
                 torch.cuda.synchronize()
@@ -180,7 +188,7 @@ def main():
                 "variant": name, "backbone": cfg.backbone, "card": card,
                 "tracks": out["num_tracks"],
                 "wall_s": walls, "clips_per_s": [n_clips / w for w in walls],
-                "stage_s": {k: v for k, v in timers.items() if not k.endswith("_n")},
+                "stage_s": stage_s, "stage_host_s": req.seconds(),
                 "profiled_wall_s": prof_wall,
                 "device_busy_share": busy if busy is not None else "not measured",
                 "device_ms": dev_ms if events else "not measured",
@@ -191,7 +199,7 @@ def main():
                 indices = sorted({e.device_index for e in events})
                 row.update({
                     "sharding": sharding, "devices": devices,
-                    "first_call_encode_weights_s": first["encode_weights"],
+                    "first_call_encode_weights_s": first["vis.encode_weights"],
                     "device_busy_share_by_device": {
                         f"cuda:{i}": _busy_us([e for e in events if e.device_index == i])
                         / 1e6 / prof_wall for i in indices}})

@@ -2,7 +2,11 @@
 ``mdqe_cvpr2023_tpu/tracking/device_tracker.py``): the per-clip association
 and memory update run on the device as masked fixed-shape tensors; only the
 exact assignment runs on the host, on the gated (M, K) score matrix, which is
-copied to the host once per clip.
+copied to the host once per clip. On the port's tracer
+(``utils/tracing.py``) ``tracker_step`` records ``vis.track.wait`` (that
+copy), ``vis.track.assign`` (the host assignment) and
+``vis.track.upload.wait`` (the assignment's upload), and counts the cells
+of the matrices it solves in ``vis.lsa_cells``.
 """
 from __future__ import annotations
 
@@ -13,6 +17,7 @@ import numpy as np
 import torch
 
 from ..ops.hungarian import lsa_maximize
+from ..utils import tracing
 from .mask_memory import (mem_average, mem_finalize_masks, mem_init, mem_siou,
                           mem_update, rollover_from_avg)
 
@@ -138,16 +143,21 @@ def tracker_step(state, cfg: TrackerCfg, scores, cls_probs, masks, embeds, valid
     gated = score_mat * (score_mat > thres)
 
     # exact assignment on the host: the clip's one device-to-host read
-    g = gated.cpu().numpy()
-    if M <= K:
-        col4row = lsa_maximize(g, g.any(axis=1)).astype(np.int64)
-        matched_np = np.where(g[np.arange(M), col4row] > 0, col4row, -1)
-    else:
-        row4col = lsa_maximize(g.T, g.any(axis=0)).astype(np.int64)
-        c_ok = g[row4col, np.arange(K)] > 0
-        matched_np = np.full(M, -1, np.int64)
-        matched_np[row4col[c_ok]] = np.nonzero(c_ok)[0]
-    matched_col = torch.from_numpy(matched_np).to(dev)
+    with tracing.wait("vis.track.wait"):
+        g = gated.cpu().numpy()
+    with tracing.span("vis.track.assign"):
+        if M <= K:
+            col4row = lsa_maximize(g, g.any(axis=1)).astype(np.int64)
+            matched_np = np.where(g[np.arange(M), col4row] > 0, col4row, -1)
+        else:
+            row4col = lsa_maximize(g.T, g.any(axis=0)).astype(np.int64)
+            c_ok = g[row4col, np.arange(K)] > 0
+            matched_np = np.full(M, -1, np.int64)
+            matched_np[row4col[c_ok]] = np.nonzero(c_ok)[0]
+        matched = torch.from_numpy(matched_np)
+    tracing.count("vis.lsa_cells", M * K)
+    with tracing.wait("vis.track.upload.wait"):   # from pageable memory: it synchronizes
+        matched_col = matched.to(dev)
 
     is_matched_row = matched_col >= 0
     safe_c = matched_col.clamp(0, K - 1)

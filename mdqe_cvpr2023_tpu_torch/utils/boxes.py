@@ -5,6 +5,8 @@ from __future__ import annotations
 
 import torch
 
+from . import tracing
+
 
 def box_cxcywh_to_xyxy(x):
     cx, cy, w, h = x.unbind(-1)
@@ -77,7 +79,8 @@ def masks_to_boxes(masks):
     any_x = masks.any(-2)                                   # (..., W)
     ys = torch.arange(H, dtype=torch.float32, device=masks.device)
     xs = torch.arange(W, dtype=torch.float32, device=masks.device)
-    big = torch.tensor(1e9, dtype=torch.float32, device=masks.device)
+    with tracing.wait("boxes.wait", syncs=int(masks.is_cuda)):   # an upload
+        big = torch.tensor(1e9, dtype=torch.float32, device=masks.device)
     y0 = torch.where(any_y, ys, big).amin(-1)
     y1 = torch.where(any_y, ys + 1.0, -big).amax(-1)
     x0 = torch.where(any_x, xs, big).amin(-1)
