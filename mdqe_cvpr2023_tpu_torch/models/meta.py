@@ -9,7 +9,8 @@ The schedule is the JAX package's: clips of ``n_frames_test`` frames every
 windows of ``n_frames_window_test`` frames encoded ``encode_chunk`` frames at
 a time, S = 8 clips of a window decoded in one batch, and at the video end the
 final top-k chosen first so that only the selected rows of deferred windows
-are upsampled and copied to the host.
+are upsampled; the results' masks are assembled on the device and copied to
+the host once.
 
 ``inference_vis(devices=[...])`` (the JAX package's ``mesh=``) shards the
 window encode by frames: one process, each chunk's frames split evenly over
@@ -23,7 +24,8 @@ is the request ``vis.video`` with spans ``vis.encode_weights``,
 ``vis.track.assign`` and the waits of ``tracker_step``), ``vis.window``,
 ``vis.finalize`` and ``vis.merge``, a ``*.wait`` span around every read of
 a device tensor and every upload from host memory (each synchronizes the
-stream), and the counters ``vis.clips`` and ``vis.lsa_cells``;
+stream), and the counters ``vis.clips``, ``vis.lsa_cells``,
+``vis.merge_results`` and ``vis.merge_bytes``;
 ``inference_image`` is the request ``image.infer`` with ``image.upload``,
 ``image.forward``, ``image.post`` and ``image.host``.
 """
@@ -41,7 +43,8 @@ from torch import nn
 
 from ..tracking.device_tracker import (TrackerCfg, tracker_state_init,
                                        tracker_step, tracker_window_average)
-from ..tracking.mask_memory import finalize_from_avg, packbits
+from ..tracking.mask_memory import (finalize_bool_from_avg, finalize_from_avg, packbits,
+                                     unpackbits)
 from ..utils import tracing
 from ..utils.boxes import box_iou, masks_to_boxes
 from ..utils.misc import aligned_bilinear, resolve_device
@@ -276,16 +279,90 @@ def decode_clips_batched(model: MDQEModel, window_encoded, window_mask_flat,
                             apply_cls_thres, topk, dedup_sim)
 
 
-def _finalize_rows(window_out, rows, inf_cfg: InferenceCfg, image_size, ori_size):
-    """Bit-packed masks (len(rows), len_frames, oh, ceil(ow/8)) of the given
-    rows of a window's average slab, on the device."""
-    _, _, avg, len_frames = window_out
-    with tracing.wait("vis.finalize.wait"):
-        idx = torch.as_tensor(rows, device=avg.device)
-    parts = [finalize_from_avg(avg.index_select(0, idx[c:c + FINALIZE_CHUNK]),
-                               inf_cfg.match_stride, image_size, ori_size)
-             for c in range(0, len(rows), FINALIZE_CHUNK)]
+def _finalize_live(avg, n: int, len_frames: int, inf_cfg: InferenceCfg, image_size,
+                   ori_size):
+    """Bit-packed masks (n, len_frames, oh, ceil(ow/8)) of the first ``n``
+    rows (the live ones) of a window's average slab, on the device."""
+    parts = [finalize_from_avg(avg[c:min(c + FINALIZE_CHUNK, n)], inf_cfg.match_stride,
+                               image_size, ori_size)
+             for c in range(0, n, FINALIZE_CHUNK)]
     return torch.cat(parts)[:, :len_frames]
+
+
+def _to_host(masks):
+    """``masks`` in host memory: from a card one blocking copy into pinned
+    memory (torch's caching host allocator), the tensor itself on the CPU."""
+    if masks.device.type == "cpu":
+        return masks
+    host = torch.empty(masks.shape, dtype=masks.dtype, pin_memory=True)
+    with tracing.wait("vis.merge.wait"):
+        host.copy_(masks)
+    return host
+
+
+def _merge_masks(inst_idx, windows, inf_cfg: InferenceCfg, image_size, ori_size,
+                 real_len: int, dev):
+    """The results' masks, assembled on the device and copied to the host.
+
+    ``windows`` in frame order, each (kind, n, src, len_frames) with ``n``
+    live rows: a ``"slab"`` window's ``src`` is its average slab, whose
+    selected rows are finalized here ``FINALIZE_CHUNK`` at a time; a
+    ``"packed"`` window (finalized early) holds its rows' packed masks, and
+    the selected ones are unpacked here. Result k is row ``inst_idx[k]``
+    where a window has it and zeros elsewhere: a row chosen under two labels
+    fills two results. The results go into (R, video_len, oh, ow) bool
+    tensors on the device, as many results a tensor as ``slab_hbm_budget``
+    holds, each copied to the host once. Counters ``vis.merge_results`` and
+    ``vis.merge_bytes`` (the bytes placed in host memory). Returns a
+    C-contiguous (real_len, oh, ow) bool view a result, no two overlapping."""
+    rows = np.asarray(inst_idx, np.int64)
+    R = len(rows)
+    if R == 0:
+        return []
+    oh, ow = int(ori_size[0]), int(ori_size[1])
+    starts = np.cumsum([0] + [w[3] for w in windows]).tolist()
+    video_len = starts[-1]
+    step = max(1, min(R, int(inf_cfg.slab_hbm_budget) // (video_len * oh * ow)))
+    # Every index the fills use, uploaded at once: per result chunk, window
+    # and FINALIZE_CHUNK of its distinct selected rows (sorted, as the rows
+    # are finalized one chunk a call), the rows, the slots of the chunk's
+    # results that take them and each slot's position among the rows.
+    plan, flat, at = [], [], 0
+    for c0 in range(0, R, step):
+        sel = rows[c0:c0 + step]
+        fills = []
+        for w, (_, n, _, _) in enumerate(windows):
+            present = np.unique(sel[sel < n])
+            for u0 in range(0, len(present), FINALIZE_CHUNK):
+                u = present[u0:u0 + FINALIZE_CHUNK]
+                slots = np.flatnonzero(np.isin(sel, u))
+                flat += [u, slots, np.searchsorted(u, sel[slots])]
+                fills.append((w, at, len(u), len(slots)))
+                at += len(u) + 2 * len(slots)
+        plan.append((len(sel), fills))
+    with tracing.wait("vis.merge.wait"):
+        idx = torch.as_tensor(np.concatenate(flat), device=dev)
+    masks = []
+    for m, fills in plan:
+        out = torch.zeros((m, video_len, oh, ow), dtype=torch.bool, device=dev)
+        for w, a, nu, ns in fills:
+            kind, _, src, len_frames = windows[w]
+            u = idx[a:a + nu]
+            slots = idx[a + nu:a + nu + ns]
+            pos = idx[a + nu + ns:a + nu + 2 * ns]
+            if kind == "slab":
+                part = finalize_bool_from_avg(src.index_select(0, u), inf_cfg.match_stride,
+                                              image_size, ori_size)[:, :len_frames]
+            else:
+                part = unpackbits(src.index_select(0, u), ow)
+            out[:, starts[w]:starts[w] + len_frames].index_copy_(0, slots,
+                                                                 part.index_select(0, pos))
+        host = _to_host(out)
+        tracing.count("vis.merge_bytes", host.nbytes)
+        arr = host.numpy()
+        masks += [arr[k, :real_len] for k in range(m)]
+    tracing.count("vis.merge_results", R)
+    return masks
 
 
 def inference_video(pred_cls_clips):
@@ -482,8 +559,8 @@ def _inference_vis(req, model, inf_cfg, frames, image_size, ori_size, pixel_mean
                     wo = window_outputs.pop(0)
                     with tracing.wait("vis.finalize.wait"):
                         n = int(wo[1])
-                    packed = (_finalize_rows(wo, list(range(n)), inf_cfg,
-                                             image_size, ori_size) if n else None)
+                    packed = (_finalize_live(wo[2], n, wo[3], inf_cfg, image_size,
+                                             ori_size) if n else None)
                     finalized.append((wo[0], n, packed, wo[3]))
             saved_clips += 1
             if not is_last_clip:  # host shadow of the tracker's rollover
@@ -493,7 +570,7 @@ def _inference_vis(req, model, inf_cfg, frames, image_size, ori_size, pixel_mean
             break
 
     # video end: select first (tiny class scores, one host read), then
-    # materialize masks of the selected rows only
+    # assemble the masks of the selected rows on the device
     with tracing.span("vis.merge"):
         pend_cls = [fin[0] for fin in finalized] + [wo[0] for wo in window_outputs]
         pend_num = [wo[1] for wo in window_outputs]
@@ -504,50 +581,19 @@ def _inference_vis(req, model, inf_cfg, frames, image_size, ori_size, pixel_mean
         cls_sz = [c.numel() for c in pend_cls]
         offs = np.concatenate([[0], np.cumsum(cls_sz)]).astype(np.int64)
         counts = packed_host[offs[-1]:]
-        win_cls, win_len, win_src = [], [], []
+        win_cls, windows = [], []   # windows: (kind, n, masks source, len_frames)
         for k, (out_cls, n, packed, len_frames) in enumerate(finalized):
             win_cls.append(packed_host[offs[k]:offs[k + 1]].reshape(out_cls.shape)[:n])
-            win_len.append(len_frames)
-            win_src.append(("full", n, packed))
+            windows.append(("packed", n, packed, len_frames))
         for k, wo in enumerate(window_outputs):
             kk = len(finalized) + k
             n = int(counts[k])
             win_cls.append(packed_host[offs[kk]:offs[kk + 1]].reshape(wo[0].shape)[:n])
-            win_len.append(wo[3])
-            win_src.append(("slab", n, wo))
+            windows.append(("slab", n, wo[2], wo[3]))
 
         out_scores, out_labels, inst_idx, total = inference_video(win_cls)
-        sel_rows = sorted({int(r) for r in inst_idx})
-        win_masks = []  # per window: {row: (L, oh, pw) uint8}
-        for (kind, n, src), len_frames in zip(win_src, win_len):
-            if kind == "full":
-                host = None
-                if n:
-                    with tracing.wait("vis.merge.wait"):
-                        host = src.cpu().numpy()
-                win_masks.append({r: host[r] for r in range(n)})
-            else:
-                rows = [r for r in sel_rows if r < n]
-                host = None
-                if rows:
-                    packed = _finalize_rows(src, rows, inf_cfg, image_size, ori_size)
-                    with tracing.wait("vis.merge.wait"):
-                        host = packed.cpu().numpy()
-                win_masks.append({r: host[a] for a, r in enumerate(rows)})
-
-        ow = ori_size[1]
-        out_masks = []
-        for r in inst_idx:
-            parts = []
-            for rowmap, len_frames in zip(win_masks, win_len):
-                m = rowmap.get(int(r))
-                if m is None:
-                    parts.append(np.zeros((len_frames,) + tuple(ori_size), bool))
-                else:
-                    parts.append(np.unpackbits(m, axis=-1)[..., :ow].view(bool))
-            out_masks.append(np.concatenate(parts, axis=0))
-        if real_len < video_len:  # drop the short-video padding frames
-            out_masks = [m[:real_len] for m in out_masks]
+        out_masks = _merge_masks(inst_idx, windows, inf_cfg, image_size, ori_size,
+                                 real_len, dev)
     return {"image_size": ori_size, "pred_scores": out_scores,
             "pred_labels": out_labels, "pred_masks": out_masks,
             "num_tracks": int(total)}

@@ -1,8 +1,9 @@
 """Device-resident tracker mask memory (counterpart of
 ``mdqe_cvpr2023_tpu/tracking/mask_memory.py``): running logit sums at stride 4
-stay on the device; the host receives small score matrices and, per window,
-bit-packed binary masks. Binarization is logit > 0 (== sigmoid > 0.5), which
-commutes with the final nearest resize.
+stay on the device; the host receives small score matrices and the results'
+binary masks (``packbits`` keeps a window finalized early small on the
+device). Binarization is logit > 0 (== sigmoid > 0.5), which commutes with
+the final nearest resize.
 
 Unlike the JAX versions, ``mem_update`` adds into the memory in place (the JAX
 package donates the buffers to the same effect). The memory lives on the
@@ -98,15 +99,30 @@ def packbits(x_bool):
     return (x << shifts).sum(-1, dtype=torch.uint8)
 
 
-def finalize_from_avg(avg_logits, match_stride: int, image_size, ori_size):
-    """avg_logits (m, F, h4, w4) -> bit-packed binary masks at the original size
-    (m, F, oh, ceil(ow/8)) uint8: aligned-bilinear upsample, crop the padding,
+def unpackbits(packed, width: int):
+    """``packbits`` undone: (..., ceil(width/8)) uint8, big-endian bit order
+    -> (..., width) bool, on the tensor's device."""
+    shifts = torch.arange(7, -1, -1, dtype=torch.uint8, device=packed.device)
+    bits = (packed[..., None] >> shifts) & 1
+    return bits.reshape(*packed.shape[:-1], -1)[..., :width].bool()
+
+
+def finalize_bool_from_avg(avg_logits, match_stride: int, image_size, ori_size):
+    """avg_logits (m, F, h4, w4) -> binary masks at the original size
+    (m, F, oh, ow) bool: aligned-bilinear upsample, crop the padding,
     threshold at logit 0, nearest resize (an index gather; the JAX package
-    used one-hot matmuls for the TPU), pack bits. The port's
-    ``finalize_avg_chunk`` as well: without jit, one function serves both."""
+    used one-hot matmuls for the TPU)."""
     up = aligned_bilinear(avg_logits, match_stride)
     up = up[:, :, :image_size[0], :image_size[1]]
-    return packbits(interpolate_nearest(up > 0, ori_size))
+    return interpolate_nearest(up > 0, ori_size)
+
+
+def finalize_from_avg(avg_logits, match_stride: int, image_size, ori_size):
+    """``finalize_bool_from_avg`` bit-packed: (m, F, oh, ceil(ow/8)) uint8.
+    The port's ``finalize_avg_chunk`` as well: without jit, one function
+    serves both."""
+    return packbits(finalize_bool_from_avg(avg_logits, match_stride, image_size,
+                                           ori_size))
 
 
 def mem_finalize_masks(avg_logits, match_stride: int, image_size, ori_size,

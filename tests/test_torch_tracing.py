@@ -357,6 +357,21 @@ def test_inference_vis_records_its_spans_and_one_sync_per_device_read(tiny_model
     assert len(out["pred_scores"]) > 0
 
 
+@pytest.mark.parametrize("n_frames", [9, 1])
+def test_inference_vis_counts_what_the_merge_carries(tiny_model, n_frames):
+    """``vis.merge_results`` is the results, ``vis.merge_bytes`` their bool
+    masks' bytes over the padded video (a 1-frame video is padded to a
+    clip), before the cut to the video's own frames."""
+    out = meta.inference_vis(tiny_model, CROWD, _video(n_frames), (60, 62), (120, 124),
+                             device="cpu")
+    req = tracing.last("vis.video")
+    video_len = max(n_frames, CROWD.n_frames_test)
+    assert req.counters["vis.merge_results"] == len(out["pred_scores"]) > 0
+    assert req.counters["vis.merge_bytes"] == sum(
+        m.nbytes for m in out["pred_masks"]) * video_len // n_frames
+    assert all(m.shape == (n_frames, 120, 124) for m in out["pred_masks"])
+
+
 def test_train_step_records_its_phases():
     model = MDQEModel(MDQEModelCfg(**TINY), device="cpu", seed=0)
     opt = ptrain.make_optimizer(model, ptrain.TrainCfg())
