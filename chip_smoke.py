@@ -79,6 +79,14 @@ Phases (each exits non-zero on failure; none is caught and continued):
      version at the training shapes, each timed (eager, graph replay) beside
      the plain version, the grid_sample form and the bound, and the bf16
      kernels at the AMP step's shapes as in 6a;
+  6f. R50 at OVIS 720p (configs/R50_ovis_720.yaml: 20-frame windows, class
+     threshold 0.2) through inference_vis at full width on a 100-frame
+     640x1138 video (padded 640x1152: 15,300 encoder tokens a frame, the
+     tracker's masks at 160x288), five windows of which the slab budget
+     finalizes the oldest early (the crowded tracker's counters read: one
+     window, its live rows, their packed bytes), the kernels' call shapes
+     recorded; then the forward kernel at every recorded call shape against
+     its plain version and timed as in 6c;
   6d. data parallelism (``tools/ddp_step.py``, ranks as subprocesses under
      torch.distributed.run, each with a timeout): the R50 step at full width
      (2 clips of 4 x 512x800, one a rank) on two ranks sharing the one card
@@ -115,6 +123,8 @@ Phases (each exits non-zero on failure; none is caught and continued):
   8. the kernel list as one JSON line; the card line; the result line.
 
 Usage: python3 chip_smoke.py   (needs one CUDA card; runs from the checkout)
+       python3 chip_smoke.py --r50-720   (only the build and phase 6f, with the
+       kernels line of its entries)
        python3 chip_smoke.py --kernel-times   (only the kernels' times at every
        forward site, the backward's training sites and every tc_kdepth shape,
        one JSON line each; see kernel_times)
@@ -2244,6 +2254,45 @@ def swin_paths(da, card):
     return entries
 
 
+R50_720_HW = (640, 1138)   # configs/R50_ovis_720.yaml's test size of a 16:9 video
+R50_720_FRAMES = 100       # five 20-frame windows: four slabs fit the 2 GiB budget
+
+
+def r50_720_paths(da, card):
+    """Phase 6f: R50 MDQE at OVIS 720p through ``inference_vis`` at full width
+    on a ``R50_720_FRAMES``-frame video, the kernels' call shapes recorded;
+    the crowded run's eviction counters (one window finalized early, its
+    live rows, their packed bytes: 143 bytes a row of 1138 columns); then
+    the forward kernel at every recorded shape against its plain version and
+    timed. Returns the kernels line's entries ``[<site>,r50_720]``."""
+    from mdqe_cvpr2023_tpu_torch.models import meta
+    from mdqe_cvpr2023_tpu_torch.models.detr import MDQEModelCfg
+    from mdqe_cvpr2023_tpu_torch.utils import tracing
+    phase(f"main path: R50 inference_vis at OVIS 720p, {R50_720_FRAMES} frames ({card})")
+    cfg = MDQEModelCfg(backbone="resnet50", num_classes=25, hidden_dim=256,
+                       n_heads=8, enc_layers=6, dec_layers=6, n_frames=4,
+                       n_query=196, query_embed_dim=64, dec_temporal=True)
+    inf = meta.InferenceCfg(clip_stride=1, n_frames_test=4, n_frames_window_test=20,
+                            max_num_instances=120, apply_cls_thres=0.2,
+                            clip_topk=150, encode_chunk=10, num_classes=25)
+    with recorded_sites(da) as seen:
+        launches = vis_full_width(da, card, cfg, inf, R50_720_FRAMES, *R50_720_HW)
+    counters = tracing.last("vis.video").counters
+    evict = {k: counters.get(k, 0) for k in ("vis.evict_windows", "vis.evict_rows",
+                                             "vis.evict_bytes")}
+    oh, ow = R50_720_HW
+    print(f"crowded run's early finalize: {json.dumps(evict)} (slab budget "
+          f"{inf.slab_hbm_budget / 2**30:.0f} GiB)", flush=True)
+    if evict["vis.evict_windows"] != 1 or evict["vis.evict_bytes"] != \
+            evict["vis.evict_rows"] * inf.n_frames_window_test * oh * -(-ow // 8):
+        fail(f"the 720p video did not finalize one window early as the budget has it: {evict}")
+    phase(f"forward kernel at the R50 720p call shapes ({card})")
+    errs, timings = swin_fwd_sites(da, "r50_720", seen["fwd"], card)
+    return [kernel_entry(f"ms_deform_attn_fwd[{site},r50_720]", SOURCE,
+                         f"{PALLAS}:{569 if site == 'encoder' else 121}", launches[site],
+                         errs[site], t) for site, t in timings.items()]
+
+
 # ---------------------------------------------------------------------------
 # 6d. data parallelism: ranks as subprocesses, the frame-sharded encode
 # ---------------------------------------------------------------------------
@@ -3273,9 +3322,15 @@ def main():
     if sys.argv[1:2] == ["--bwd-split"] and len(sys.argv) <= 3:
         bwd_split(sys.argv[2] if len(sys.argv) == 3 else None)
         return
+    if sys.argv[1:] == ["--r50-720"]:
+        from mdqe_cvpr2023_tpu_torch.ops import _build
+        from mdqe_cvpr2023_tpu_torch.ops import deform_attn as da
+        _build.build_all(["ms_deform_attn", "tc_kdepth"])
+        print(json.dumps({"kernels": r50_720_paths(da, measure.card())}), flush=True)
+        return
     if sys.argv[1:]:
-        fail(f"unknown arguments {sys.argv[1:]}: run with none, with --kernel-times or "
-             "with --bwd-split [SOURCE]")
+        fail(f"unknown arguments {sys.argv[1:]}: run with none, with --kernel-times, "
+             "--r50-720 or with --bwd-split [SOURCE]")
     from mdqe_cvpr2023_tpu_torch.ops import _build
     from mdqe_cvpr2023_tpu_torch.ops import deform_attn as da
     from mdqe_cvpr2023_tpu_torch.models import meta
@@ -3431,6 +3486,9 @@ def main():
     # ---- 6c. Swin-L -----------------------------------------------------------------
     swin_entries = swin_paths(da, card)
 
+    # ---- 6f. R50 at OVIS 720p ------------------------------------------------------------
+    r50_720_entries = r50_720_paths(da, card)
+
     # ---- 6d. data parallelism and the frame-sharded encode -----------------------------
     phase(f"main path: the data-parallel step, 2 ranks on one card over gloo; NCCL at "
           f"world size 1 ({card})")
@@ -3493,6 +3551,7 @@ def main():
         kernels.append(kernel_entry(f"ms_deform_attn_fwd[{site},coco]", SOURCE,
                                     f"{PALLAS}:{line}", coco_launches[site], coco_err[site], t))
     kernels += swin_entries
+    kernels += r50_720_entries
     kernels += ddp_kernel_entries
     kernels += demo_kernel_entries
     for r in tune_rows:  # each level's own launches and error

@@ -25,7 +25,9 @@ is the request ``vis.video`` with spans ``vis.encode_weights``,
 ``vis.finalize`` and ``vis.merge``, a ``*.wait`` span around every read of
 a device tensor and every upload from host memory (each synchronizes the
 stream), and the counters ``vis.clips``, ``vis.lsa_cells``,
-``vis.merge_results`` and ``vis.merge_bytes``;
+``vis.merge_results``, ``vis.merge_bytes`` and, where ``slab_hbm_budget``
+finalizes a window early, ``vis.evict_windows``, ``vis.evict_rows`` (its
+live rows) and ``vis.evict_bytes`` (their packed masks kept on the device);
 ``inference_image`` is the request ``image.infer`` with ``image.upload``,
 ``image.forward``, ``image.post`` and ``image.host``.
 """
@@ -562,6 +564,9 @@ def _inference_vis(req, model, inf_cfg, frames, image_size, ori_size, pixel_mean
                     packed = (_finalize_live(wo[2], n, wo[3], inf_cfg, image_size,
                                              ori_size) if n else None)
                     finalized.append((wo[0], n, packed, wo[3]))
+                    tracing.count("vis.evict_windows")
+                    tracing.count("vis.evict_rows", n)
+                    tracing.count("vis.evict_bytes", packed.nbytes if n else 0)
             saved_clips += 1
             if not is_last_clip:  # host shadow of the tracker's rollover
                 start_frame += W_win

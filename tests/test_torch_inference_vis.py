@@ -111,6 +111,60 @@ def test_slab_budget_eviction_is_exact(port_model):
         np.testing.assert_array_equal(a, b)
 
 
+EVICT_HW = (49, 87)   # 16:9, a width 7 columns past a multiple of 8
+EVICT_FRAMES = 22     # windows of 4 frames: six of them
+EVICT_KEPT = 4        # slabs the budget holds: the two oldest windows finalize early
+
+
+@pytest.mark.parametrize("evicting", [True, False], ids=["budget_evicts", "budget_holds"])
+def test_evicted_inference_vis_matches_jax(jax_params, port_model, monkeypatch, evicting):
+    """Windows finalized early under ``slab_hbm_budget`` (their live rows'
+    masks bit-packed at a width that is not a multiple of 8, unpacked in the
+    merge) against the JAX package's ``inference_vis`` at the same budget, on
+    the same frames and weights, with the bounds of
+    ``test_inference_vis_matches_jax``. The gates are open (threshold 0, no
+    dedup, no repeat suppression), so the windows finalized early carry
+    several live rows each."""
+    rng = np.random.default_rng(3)
+    video = rng.integers(0, 255, (EVICT_FRAMES,) + EVICT_HW + (3,)).astype(np.uint8)
+    frames, _ = tmeta.preprocess_frames(video)
+    jframes, _ = jmeta.preprocess_frames(video)
+    inf_kw = dict(INF_KW, apply_cls_thres=0.0, dedup_sim=2.0, suppress_siou=2.0,
+                  suppress_ctt=2.0)
+    if evicting:
+        h4, w4 = (2 * s for s in tmeta.spatial_shapes_for(MDQEModelCfg(**MODEL_KW),
+                                                           frames.shape[1:3])[0])
+        mem = INF_KW["n_frames_window_test"] + INF_KW["n_frames_test"]
+        inf_kw["slab_hbm_budget"] = EVICT_KEPT * 4 * (INF_KW["max_num_instances"] + 1) \
+            * mem * h4 * w4
+    finalized = []
+    orig = tmeta._finalize_live
+
+    def spy(avg, n, *a, **k):
+        finalized.append(n)
+        return orig(avg, n, *a, **k)
+    monkeypatch.setattr(tmeta, "_finalize_live", spy)
+
+    want = jmeta.inference_vis(jax_params, JaxModelCfg(**MODEL_KW),
+                               jmeta.InferenceCfg(**inf_kw), jframes,
+                               image_size=EVICT_HW, ori_size=EVICT_HW)
+    got = tmeta.inference_vis(port_model, tmeta.InferenceCfg(**inf_kw), frames,
+                              image_size=EVICT_HW, ori_size=EVICT_HW, device="cpu")
+
+    if evicting:
+        assert len(finalized) == 6 - EVICT_KEPT and min(finalized) > 1
+    else:
+        assert finalized == []
+    assert got["num_tracks"] == want["num_tracks"]
+    assert len(got["pred_scores"]) == len(want["pred_scores"]) >= 1
+    assert got["pred_labels"] == want["pred_labels"]
+    np.testing.assert_allclose(got["pred_scores"], want["pred_scores"], atol=5e-3)
+    for mg, mw in zip(got["pred_masks"], want["pred_masks"]):
+        assert mg.shape == mw.shape == (EVICT_FRAMES,) + EVICT_HW and mg.dtype == bool
+        union = np.logical_or(mg, mw).sum()
+        assert union == 0 or np.logical_and(mg, mw).sum() / union >= 0.99
+
+
 def test_entry_points_raise_without_card():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is valid")
