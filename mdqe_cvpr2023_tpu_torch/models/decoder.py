@@ -141,6 +141,30 @@ def tca_frames(T: int, n_frames_train: int):
     return list(range(start, T, itv))[:n_frames_train]
 
 
+@dataclass(frozen=True)
+class FrameMap:
+    """Where a decode batch's clips read its F distinct frames, for the eval
+    decoder: ``rows`` (BT,) the frame of each clip-frame row, ``tca``
+    (B*n_frames,) the frame of each clip's temporal levels. Each site
+    projects the F frames once and gathers its rows through the map."""
+    rows: torch.Tensor
+    tca: torch.Tensor
+
+
+def clip_frame_map(frame_of_row, T: int, n_frames_train: int):
+    """On the host, for BT clip-frame rows (clips of T frames, in order)
+    naming their frames: the distinct frames ascending, each row's index
+    among them, and each clip's temporal levels' (``tca_frames``, its last
+    frame repeated up to ``n_frames_train``) index among them."""
+    frames = sorted(set(frame_of_row))
+    at = {f: i for i, f in enumerate(frames)}
+    rows = [at[f] for f in frame_of_row]
+    levels = tca_frames(T, n_frames_train)
+    levels += levels[-1:] * (n_frames_train - len(levels))
+    tca = [rows[b * T + t] for b in range(len(rows) // T) for t in levels]
+    return frames, rows, tca
+
+
 def clip_ref_boxes(cfg: DecoderCfg, x_ref_boxes, T: int):
     """Circumscribed clip boxes over the central n_frames window (B,Q,4)."""
     BT, Q, _ = x_ref_boxes.shape
@@ -206,11 +230,14 @@ class DecoderLayer(nn.Module):
 
     def forward(self, x, x_pos, x_ref_boxes, x_inst, x_inst_pos,
                 x_inst_ref_boxes, src, spatial_shapes, padding_mask, T: int,
-                drop_rate: float = 0.0, generator=None):
+                drop_rate: float = 0.0, generator=None, frame_map=None):
+        """With ``frame_map``, ``src`` (F,N,C) and ``padding_mask`` (F,N) are
+        the batch's distinct frames, which both sites read through it."""
         cfg = self.cfg
         drop = lambda t: dropout(t, drop_rate, generator)  # noqa: E731
         # box level (per frame, BT batch)
-        x2 = self.cross_attn(x + x_pos, x_ref_boxes, src, spatial_shapes, padding_mask)
+        x2 = self.cross_attn(x + x_pos, x_ref_boxes, src, spatial_shapes, padding_mask,
+                             None if frame_map is None else frame_map.rows)
         x = self.norm2(x + drop(x2))
         shortcut_x = x
         q = x + x_pos
@@ -224,7 +251,10 @@ class DecoderLayer(nn.Module):
         tw = self.time_weights(shortcut_w.reshape(B, T, Q, C))        # (B,T,Q,1)
         sx = shortcut_x.reshape(B, T, Q, C)
         x_inst2 = (torch.softmax(tw.float(), 1).to(sx.dtype) * sx).sum(1)
-        if cfg.use_tca:
+        if cfg.use_tca and frame_map is not None:
+            x_inst2 = self.temp_attn_inst(x_inst2 + x_inst_pos, x_inst_ref_boxes,
+                                          src, spatial_shapes, padding_mask, frame_map.tca)
+        elif cfg.use_tca:
             frames = tca_frames(T, cfg.n_frames)
             # a list index is uploaded, which synchronizes
             with tracing.wait("decoder.tca.wait", syncs=1 + (padding_mask is not None)):
@@ -319,9 +349,10 @@ class TransformerDecoder(nn.Module):
         return boxes, boxes.detach(), self.point2pos_proj(boxes[..., :2]).to(x.dtype)
 
     def decoder_loop(self, x, x_ref_points, src, spatial_shapes, padding_mask,
-                     T: int, drop_rate: float = 0.0, generator=None):
+                     T: int, drop_rate: float = 0.0, generator=None, frame_map=None):
         """-> lists of the instance queries (B,Q,C) and refined boxes (BT,Q,4)
-        cxcywh after the warm-up refinement and each layer (L+1 entries)."""
+        cxcywh after the warm-up refinement and each layer (L+1 entries).
+        With ``frame_map``, ``src`` and ``padding_mask`` hold its F frames."""
         cfg = self.cfg
         BT, Q, C = x.shape
         B = BT // T
@@ -335,7 +366,7 @@ class TransformerDecoder(nn.Module):
         for layer in self.decoder.layers:
             x, x_inst = layer(x, x_pos, x_ref_boxes, x_inst, x_inst_pos, x_inst_ref,
                               src, spatial_shapes, padding_mask, T, drop_rate,
-                              generator)
+                              generator, frame_map)
             x_boxes, x_ref_boxes, x_pos = self.refine(x, x_ref_boxes)
             x_inst_ref = clip_ref_boxes(cfg, x_ref_boxes, T)
             x_inst_pos = self.point2pos_proj(x_inst_ref[..., :2]).to(x.dtype)
@@ -368,16 +399,22 @@ class TransformerDecoder(nn.Module):
                 "query_coords": query_coords}
 
     def forward(self, encoded, padding_mask, spatial_shapes, n_frames: int,
-                is_coco: bool = False):
+                is_coco: bool = False, frame_map=None):
         """Eval ``decoder_apply(training=False, is_coco=...)``. encoded
         (BT,N,C), padding_mask (BT,N) True on padded. Returns {'cls' (B,Q,K)
         sigmoid} and, for the VIS path, {'mask_coeff' (B,Q,M), 'query_embed'
         (B,Q,C)}; with ``is_coco``, {'masks' (B,Q,BT,h4,w4) mask logits of
-        every frame, 'boxes' (B,Q,T,4) xyxy of the last layer}."""
+        every frame, 'boxes' (B,Q,T,4) xyxy of the last layer}. With a
+        ``FrameMap``, encoded (F,N,C) and padding_mask (F,N) are the F
+        frames its BT rows name: the layers project each once."""
         T = n_frames
+        src = encoded
+        if frame_map is not None:
+            encoded = encoded.index_select(0, frame_map.rows)
         query, query_coords, _ = self.query_initialization(encoded, spatial_shapes, T)
-        insts, boxes = self.decoder_loop(query, query_coords, encoded,
-                                         spatial_shapes, padding_mask, T)
+        insts, boxes = self.decoder_loop(query, query_coords, src,
+                                         spatial_shapes, padding_mask, T,
+                                         frame_map=frame_map)
         x_inst = insts[-1]
         last = self.decoder_norm(x_inst)
         out = {"cls": torch.sigmoid(self.cls_embed(last))}

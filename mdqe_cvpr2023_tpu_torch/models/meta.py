@@ -25,7 +25,8 @@ is the request ``vis.video`` with spans ``vis.encode_weights``,
 ``vis.finalize`` and ``vis.merge``, a ``*.wait`` span around every read of
 a device tensor and every upload from host memory (each synchronizes the
 stream), and the counters ``vis.clips``, ``vis.lsa_cells``,
-``vis.merge_results``, ``vis.merge_bytes`` and, where ``slab_hbm_budget``
+``vis.merge_results``, ``vis.merge_bytes``, ``vis.decode_rows`` and
+``vis.decode_proj_frames`` (``decode_clips_batched``) and, where ``slab_hbm_budget``
 finalizes a window early, ``vis.evict_windows``, ``vis.evict_rows`` (its
 live rows) and ``vis.evict_bytes`` (their packed masks kept on the device);
 ``inference_image`` is the request ``image.infer`` with ``image.upload``,
@@ -50,6 +51,7 @@ from ..tracking.mask_memory import (finalize_bool_from_avg, finalize_from_avg, p
 from ..utils import tracing
 from ..utils.boxes import box_iou, masks_to_boxes
 from ..utils.misc import aligned_bilinear, resolve_device
+from .decoder import FrameMap, clip_frame_map
 from .detr import (DeformableDETR, MDQEModel, MDQEModelCfg, detr_apply_coco, detr_encode,
                    detr_mask_feats)
 
@@ -267,15 +269,26 @@ def decode_clips_batched(model: MDQEModel, window_encoded, window_mask_flat,
                          window_mask_feats, offsets, spatial_shapes, n_frames: int,
                          apply_cls_thres: float, topk: int, dedup_sim: float = 0.99):
     """Decode the S clips starting at ``offsets`` (frames within the window) in
-    one batch of S * n_frames frames; returns the (S, ...) slabs."""
+    one batch of S * n_frames frames; returns the (S, ...) slabs.
+
+    The decoder projects each distinct frame of the batch once a layer and
+    site and reads the clips' rows through a ``FrameMap``, uploaded with the
+    rows' index in one tensor. Counters ``vis.decode_rows`` (S * n_frames)
+    and ``vis.decode_proj_frames`` (the distinct frames)."""
+    dec = model.detr.transformer_dec
+    S, BT = len(offsets), len(offsets) * n_frames
     idx = [o + t for o in offsets for t in range(n_frames)]
+    frames, rows, tca = clip_frame_map(idx, n_frames, dec.cfg.n_frames)
+    F = len(frames)
     with tracing.wait("vis.decode.wait"):
-        idx = torch.as_tensor(idx, device=window_encoded.device)
-    S = len(offsets)
-    enc = window_encoded.index_select(0, idx)
-    mfl = window_mask_flat.index_select(0, idx)
-    mfe = window_mask_feats.index_select(0, idx)
-    out = model.detr.transformer_dec(enc, mfl, spatial_shapes, n_frames)
+        host = torch.as_tensor(idx + frames + rows + tca, device=window_encoded.device)
+    tracing.count("vis.decode_rows", BT)
+    tracing.count("vis.decode_proj_frames", F)
+    at = host[BT:BT + F]
+    mfe = window_mask_feats.index_select(0, host[:BT])
+    out = dec(window_encoded.index_select(0, at), window_mask_flat.index_select(0, at),
+              spatial_shapes, n_frames,
+              frame_map=FrameMap(host[BT + F:2 * BT + F], host[2 * BT + F:]))
     return postprocess_clip(out["cls"], out["mask_coeff"], out["query_embed"],
                             mfe.reshape(S, n_frames, *mfe.shape[1:]),
                             apply_cls_thres, topk, dedup_sim)

@@ -506,3 +506,64 @@ def test_tc_kdepth_rejects_bad_shapes(cuda_device):
     shifted = torch.zeros(64 * 16 + 1, device=cuda_device)[1:].view(64, 16)
     with pytest.raises(ValueError, match="16-byte aligned"):
         tc.tc_kdepth_cuda(shifted, b[:16], 4)
+
+
+# The VIS decode batch (S_BATCH clips of 4 frames at R50 widths) at 360p and
+# 720p (N = 5,100 / 15,300 tokens a frame) in a window of 30 / 20 frames: a
+# full stride-1 batch (11 distinct frames) and a padded tail (6).
+DECODE_GEOMETRY = {"360p": ((384, 640), 30), "720p": ((640, 1152), 20)}
+DECODE_BATCHES = {"full": [5 + s for s in range(8)], "padded_tail": [14, 15] + [16] * 6}
+
+
+@pytest.mark.parametrize("batch", sorted(DECODE_BATCHES))
+@pytest.mark.parametrize("res", sorted(DECODE_GEOMETRY))
+def test_frame_map_decode_is_bit_equal_to_the_per_clip_decode(cuda_device, monkeypatch, res,
+                                                              batch):
+    """``decode_clips_batched`` projects each distinct frame once and
+    gathers the clips' values: every value the deformable attention takes
+    (both sites, each level of the temporal one) is ``torch.equal`` to the
+    per-clip projection, masked fill and level copy, and so are the slabs."""
+    from mdqe_cvpr2023_tpu_torch.models import attention, meta
+    from mdqe_cvpr2023_tpu_torch.models.detr import MDQEModel, MDQEModelCfg
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    padded, W = DECODE_GEOMETRY[res]
+    cfg = MDQEModelCfg(num_classes=25, n_frames=4)
+    model = MDQEModel(cfg, device=cuda_device, seed=0)
+    dec = model.detr.transformer_dec
+    shapes = meta.spatial_shapes_for(cfg, padded)
+    N = sum(h * w for h, w in shapes)
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    enc = torch.randn(W, N, cfg.hidden_dim, generator=g, device=cuda_device)
+    mflat = torch.rand(W, N, generator=g, device=cuda_device) < 0.1
+    M = dec.mask_embed.layers[-1].out_features
+    maskf = torch.randn(W, 2 * shapes[0][0], 2 * shapes[0][1], M, generator=g,
+                        device=cuda_device)
+    offsets, T = DECODE_BATCHES[batch], 4
+
+    values = []
+    fwd = attention.ms_deform_attn
+
+    def recorded(value, *args):
+        values[-1].append(value)
+        return fwd(value, *args)
+
+    monkeypatch.setattr(attention, "ms_deform_attn", recorded)
+    with torch.inference_mode():
+        values.append([])
+        S = len(offsets)
+        idx = torch.tensor([o + t for o in offsets for t in range(T)], device=cuda_device)
+        out = dec(enc.index_select(0, idx), mflat.index_select(0, idx), shapes, T)
+        mfe = maskf.index_select(0, idx)
+        want = meta.postprocess_clip(out["cls"], out["mask_coeff"], out["query_embed"],
+                                     mfe.reshape(S, T, *mfe.shape[1:]), 0.2, 150)
+        values.append([])
+        got = meta.decode_clips_batched(model, enc, mflat, maskf, offsets, shapes, T, 0.2, 150)
+    torch.cuda.synchronize()
+    per_clip, mapped = values
+    assert len(per_clip) == len(mapped) == cfg.dec_layers * (1 + len(shapes))
+    for k, (a, b) in enumerate(zip(per_clip, mapped)):
+        assert a.shape == b.shape and b.is_contiguous(), k
+        assert torch.equal(a, b), k
+    assert got.keys() == want.keys()
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
