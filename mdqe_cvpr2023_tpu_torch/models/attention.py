@@ -126,16 +126,13 @@ class MSDeformAttn(nn.Module):
     def forward(self, query, reference_points, input_flatten,
                 spatial_shapes: Sequence[Tuple[int, int]], padding_mask=None,
                 value_rows=None):
-        """spatial:  query (B,Q,C), reference_points (B,Q,4) cxcywh,
-                     input_flatten (B,N,C), padding_mask (B,N) True on padded.
-        temporal: input_flatten (B,T,N,C), padding_mask (B,T,N), T == lvl.
-
-        With ``value_rows`` (a long tensor on the device) the input is F
-        frames, input_flatten (F,N,C) and padding_mask (F,N), projected and
-        masked once each; ``value_rows`` names the frame of each value row:
-        (B,) spatial, (B*lvl,) temporal (a clip's levels in order). The
-        rows are gathered from the masked projection, so each is the row the
-        per-row input would give."""
+        """query (B,Q,C), reference_points (B,Q,4) cxcywh; the input is F
+        frames, input_flatten (F,N,C) and padding_mask (F,N) True on padded,
+        projected and masked once each. ``value_rows`` (a long tensor on the
+        device) names the frame of each value row: (B,) spatial, (B*lvl,)
+        temporal (a clip's levels in order); the rows are gathered from the
+        masked projection. The temporal mode always takes it; the spatial
+        mode takes none where its rows are the F frames (the encoder)."""
         cfg = self.cfg
         H = cfg.n_heads
         D = cfg.d_model // H
@@ -152,24 +149,14 @@ class MSDeformAttn(nn.Module):
             out = ms_deform_attn(value.reshape(B, N, H, D), spatial_shapes, loc,
                                  attw, self.site)
         else:
-            if value_rows is None:
-                B, T = value.shape[:2]
-            else:
-                B, T = query.shape[0], value_rows.numel() // query.shape[0]
-            if loc.shape[3] != T:
-                raise ValueError(f"{T} frames for {loc.shape[3]} temporal levels")
+            B, T = query.shape[0], cfg.lvl
             outs, start = [], 0
             for h_l, w_l in spatial_shapes:
                 hw = int(h_l) * int(w_l)
-                if value_rows is None:
-                    # (B, T, hw, C) slice -> frames stacked as levels (a copy;
-                    # a 1x1 level would otherwise reshape to a strided view)
-                    v_l = value[:, :, start:start + hw].reshape(B, T * hw, H, D).contiguous()
-                else:
-                    # the clips' levels gathered from the frames' slice, into
-                    # a new contiguous (B*T, hw, C): the same layout
-                    v_l = value[:, start:start + hw].index_select(0, value_rows) \
-                        .reshape(B, T * hw, H, D)
+                # the clips' levels gathered from the frames' slice, into a
+                # new contiguous (B*T, hw, C): frames stacked as levels
+                v_l = value[:, start:start + hw].index_select(0, value_rows) \
+                    .reshape(B, T * hw, H, D)
                 start += hw
                 outs.append(ms_deform_attn(v_l, [(h_l, w_l)] * T, loc, attw,
                                            self.site))

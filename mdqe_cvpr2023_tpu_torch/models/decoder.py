@@ -8,14 +8,11 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from functools import lru_cache
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..utils import tracing
 from ..utils.boxes import box_cxcywh_to_xyxy, box_xyxy_to_cxcywh
 from ..utils.misc import grid_sample, interpolate_bilinear, inverse_sigmoid
 from ..utils.nn import MLP, LayerNorm, Linear, MultiheadAttention, dropout
@@ -61,12 +58,13 @@ class DecoderCfg:
         return MaskHeadCfg(self.dim, (self.dim, self.dim))
 
 
-@lru_cache(maxsize=None)
-def query_relpos_grid(n_bins: int) -> np.ndarray:
-    """(Q, Q, 2) |grid_i - grid_j| over the n_bins x n_bins query lattice."""
-    i, j = np.meshgrid(np.arange(n_bins), np.arange(n_bins), indexing="ij")
-    idx = np.stack([j, i], axis=-1).reshape(-1, 2)
-    return np.abs(idx[:, None] - idx[None])
+def query_relpos_grid(n_bins: int, device) -> torch.Tensor:
+    """(Q, Q, 2) long |grid_i - grid_j| over the n_bins x n_bins query
+    lattice (x, y), made on ``device`` (nothing is uploaded)."""
+    ar = torch.arange(n_bins, device=device)
+    i, j = torch.meshgrid(ar, ar, indexing="ij")
+    idx = torch.stack([j, i], -1).reshape(-1, 2)
+    return (idx[:, None] - idx[None]).abs()
 
 
 def level_slices(spatial_shapes):
@@ -119,8 +117,7 @@ def inter_frame_query_association(cfg: DecoderCfg, query_init, query_coords,
     w = cfg.window_inter_frame_asso if training else cfg.window_inter_frame_asso / 2
     emb = query_embed.reshape(B, n_frames, Q, -1)
     sim = torch.einsum("btqc,bkc->btqk", emb, emb[:, ct])
-    with tracing.wait("decoder.relpos.wait"):   # an upload: it synchronizes
-        relpos = torch.from_numpy(query_relpos_grid(cfg.n_query_bins)).to(sim.device)
+    relpos = query_relpos_grid(cfg.n_query_bins, sim.device)
     masked = []
     for t in range(n_frames):
         itv = max(t - ct, ct - t)
@@ -143,12 +140,24 @@ def tca_frames(T: int, n_frames_train: int):
 
 @dataclass(frozen=True)
 class FrameMap:
-    """Where a decode batch's clips read its F distinct frames, for the eval
-    decoder: ``rows`` (BT,) the frame of each clip-frame row, ``tca``
-    (B*n_frames,) the frame of each clip's temporal levels. Each site
-    projects the F frames once and gathers its rows through the map."""
+    """Where the decoder's clips read its F distinct frames: ``rows`` (BT,)
+    the frame of each clip-frame row, ``tca`` (B*n_frames,) the frame of each
+    clip's temporal levels, long tensors on the device. Each site projects
+    the F frames once and gathers its rows through the map."""
     rows: torch.Tensor
     tca: torch.Tensor
+
+
+def own_frame_map(BT: int, T: int, n_frames_train: int, device) -> FrameMap:
+    """The map of BT rows that are their own frames (clips of T frames, in
+    order), made on ``device``: ``clip_frame_map(range(BT), ...)``'s rows
+    and temporal levels, with nothing uploaded."""
+    levels = tca_frames(T, n_frames_train)
+    itv = max(T // n_frames_train, 1)
+    k = torch.arange(n_frames_train, device=device)
+    clip = torch.arange(0, BT, T, device=device)
+    tca = clip[:, None] + (levels[0] + itv * k).clamp(max=levels[-1])
+    return FrameMap(torch.arange(BT, device=device), tca.reshape(-1))
 
 
 def clip_frame_map(frame_of_row, T: int, n_frames_train: int):
@@ -230,14 +239,14 @@ class DecoderLayer(nn.Module):
 
     def forward(self, x, x_pos, x_ref_boxes, x_inst, x_inst_pos,
                 x_inst_ref_boxes, src, spatial_shapes, padding_mask, T: int,
-                drop_rate: float = 0.0, generator=None, frame_map=None):
-        """With ``frame_map``, ``src`` (F,N,C) and ``padding_mask`` (F,N) are
-        the batch's distinct frames, which both sites read through it."""
+                frame_map: FrameMap, drop_rate: float = 0.0, generator=None):
+        """``src`` (F,N,C) and ``padding_mask`` (F,N) are the F frames both
+        sites read through ``frame_map``."""
         cfg = self.cfg
         drop = lambda t: dropout(t, drop_rate, generator)  # noqa: E731
         # box level (per frame, BT batch)
         x2 = self.cross_attn(x + x_pos, x_ref_boxes, src, spatial_shapes, padding_mask,
-                             None if frame_map is None else frame_map.rows)
+                             frame_map.rows)
         x = self.norm2(x + drop(x2))
         shortcut_x = x
         q = x + x_pos
@@ -251,23 +260,9 @@ class DecoderLayer(nn.Module):
         tw = self.time_weights(shortcut_w.reshape(B, T, Q, C))        # (B,T,Q,1)
         sx = shortcut_x.reshape(B, T, Q, C)
         x_inst2 = (torch.softmax(tw.float(), 1).to(sx.dtype) * sx).sum(1)
-        if cfg.use_tca and frame_map is not None:
+        if cfg.use_tca:
             x_inst2 = self.temp_attn_inst(x_inst2 + x_inst_pos, x_inst_ref_boxes,
                                           src, spatial_shapes, padding_mask, frame_map.tca)
-        elif cfg.use_tca:
-            frames = tca_frames(T, cfg.n_frames)
-            # a list index is uploaded, which synchronizes
-            with tracing.wait("decoder.tca.wait", syncs=1 + (padding_mask is not None)):
-                srcs_t = src.reshape(B, T, -1, C)[:, frames]
-                pm_t = (padding_mask.reshape(B, T, -1)[:, frames]
-                        if padding_mask is not None else None)
-            if len(frames) < cfg.n_frames:
-                pad = cfg.n_frames - len(frames)
-                srcs_t = torch.cat([srcs_t] + [srcs_t[:, -1:]] * pad, 1)
-                if pm_t is not None:
-                    pm_t = torch.cat([pm_t] + [pm_t[:, -1:]] * pad, 1)
-            x_inst2 = self.temp_attn_inst(x_inst2 + x_inst_pos, x_inst_ref_boxes,
-                                          srcs_t, spatial_shapes, pm_t)
         x_inst = self.norm2_inst(x_inst + drop(x_inst2))
         q_inst = x_inst + x_inst_pos
         x_inst = self.norm1_inst(
@@ -349,10 +344,10 @@ class TransformerDecoder(nn.Module):
         return boxes, boxes.detach(), self.point2pos_proj(boxes[..., :2]).to(x.dtype)
 
     def decoder_loop(self, x, x_ref_points, src, spatial_shapes, padding_mask,
-                     T: int, drop_rate: float = 0.0, generator=None, frame_map=None):
+                     T: int, frame_map: FrameMap, drop_rate: float = 0.0, generator=None):
         """-> lists of the instance queries (B,Q,C) and refined boxes (BT,Q,4)
         cxcywh after the warm-up refinement and each layer (L+1 entries).
-        With ``frame_map``, ``src`` and ``padding_mask`` hold its F frames."""
+        ``src`` and ``padding_mask`` hold ``frame_map``'s F frames."""
         cfg = self.cfg
         BT, Q, C = x.shape
         B = BT // T
@@ -365,8 +360,8 @@ class TransformerDecoder(nn.Module):
         insts, boxes = [x_inst], [x_boxes]
         for layer in self.decoder.layers:
             x, x_inst = layer(x, x_pos, x_ref_boxes, x_inst, x_inst_pos, x_inst_ref,
-                              src, spatial_shapes, padding_mask, T, drop_rate,
-                              generator, frame_map)
+                              src, spatial_shapes, padding_mask, T, frame_map, drop_rate,
+                              generator)
             x_boxes, x_ref_boxes, x_pos = self.refine(x, x_ref_boxes)
             x_inst_ref = clip_ref_boxes(cfg, x_ref_boxes, T)
             x_inst_pos = self.point2pos_proj(x_inst_ref[..., :2]).to(x.dtype)
@@ -374,18 +369,29 @@ class TransformerDecoder(nn.Module):
             boxes.append(x_boxes)
         return insts, boxes
 
+    def decode(self, src, padding_mask, spatial_shapes, T: int, frame_map: FrameMap,
+               training: bool, drop_rate: float = 0.0, generator=None):
+        """Both entry points' body: src (F,N,C) and padding_mask (F,N) the F
+        frames ``frame_map`` names. -> the clips' rows (BT,N,C), the query
+        coords and aux of ``query_initialization``, ``decoder_loop``'s lists."""
+        encoded = src.index_select(0, frame_map.rows)
+        query, query_coords, aux = self.query_initialization(encoded, spatial_shapes, T,
+                                                             training)
+        insts, boxes = self.decoder_loop(query, query_coords, src, spatial_shapes,
+                                         padding_mask, T, frame_map, drop_rate, generator)
+        return encoded, query_coords, aux, insts, boxes
+
     def forward_train(self, encoded, padding_mask, spatial_shapes, n_frames: int,
                       drop_rate: float = 0.0, generator=None):
-        """``decoder_apply(training=True)``: every layer's outputs.
-        Returns {'cls' (L+1,B,Q,K) logits, 'boxes' (L+1,B,Q,T,4) xyxy,
-        'mask_coeff' (L+1,B,Q,M), 'proto' (BT,h4,w4,M), 'query_init' (aux of
+        """``decoder_apply(training=True)``: every layer's outputs, the rows
+        of encoded (BT,N,C) their own frames (``own_frame_map``). Returns
+        {'cls' (L+1,B,Q,K) logits, 'boxes' (L+1,B,Q,T,4) xyxy, 'mask_coeff'
+        (L+1,B,Q,M), 'proto' (BT,h4,w4,M), 'query_init' (aux of
         ``query_initialization``), 'query_coords' (BT,Q,2)}."""
         T = n_frames
-        query, query_coords, aux = self.query_initialization(
-            encoded, spatial_shapes, T, training=True)
-        insts, boxes = self.decoder_loop(
-            query, query_coords, encoded, spatial_shapes, padding_mask, T,
-            drop_rate, generator)
+        frame_map = own_frame_map(encoded.shape[0], T, self.cfg.n_frames, encoded.device)
+        encoded, query_coords, aux, insts, boxes = self.decode(
+            encoded, padding_mask, spatial_shapes, T, frame_map, True, drop_rate, generator)
         inter_inst, inter_boxes = torch.stack(insts), torch.stack(boxes)
         L1, BT, Q, _ = inter_boxes.shape
         boxes = inter_boxes.reshape(L1, BT // T, T, Q, 4).transpose(2, 3)
@@ -401,20 +407,17 @@ class TransformerDecoder(nn.Module):
     def forward(self, encoded, padding_mask, spatial_shapes, n_frames: int,
                 is_coco: bool = False, frame_map=None):
         """Eval ``decoder_apply(training=False, is_coco=...)``. encoded
-        (BT,N,C), padding_mask (BT,N) True on padded. Returns {'cls' (B,Q,K)
+        (F,N,C), padding_mask (F,N) True on padded: the F frames the BT rows
+        of ``frame_map`` name, each projected once (without a map, the rows
+        are their own frames: ``own_frame_map``). Returns {'cls' (B,Q,K)
         sigmoid} and, for the VIS path, {'mask_coeff' (B,Q,M), 'query_embed'
         (B,Q,C)}; with ``is_coco``, {'masks' (B,Q,BT,h4,w4) mask logits of
-        every frame, 'boxes' (B,Q,T,4) xyxy of the last layer}. With a
-        ``FrameMap``, encoded (F,N,C) and padding_mask (F,N) are the F
-        frames its BT rows name: the layers project each once."""
+        every frame, 'boxes' (B,Q,T,4) xyxy of the last layer}."""
         T = n_frames
-        src = encoded
-        if frame_map is not None:
-            encoded = encoded.index_select(0, frame_map.rows)
-        query, query_coords, _ = self.query_initialization(encoded, spatial_shapes, T)
-        insts, boxes = self.decoder_loop(query, query_coords, src,
-                                         spatial_shapes, padding_mask, T,
-                                         frame_map=frame_map)
+        if frame_map is None:
+            frame_map = own_frame_map(encoded.shape[0], T, self.cfg.n_frames, encoded.device)
+        encoded, _, _, insts, boxes = self.decode(encoded, padding_mask, spatial_shapes, T,
+                                                  frame_map, False)
         x_inst = insts[-1]
         last = self.decoder_norm(x_inst)
         out = {"cls": torch.sigmoid(self.cls_embed(last))}

@@ -19,7 +19,6 @@ backward (no overlap).
 """
 from __future__ import annotations
 
-import functools
 import hashlib
 import itertools
 from dataclasses import dataclass
@@ -144,11 +143,6 @@ PIXEL_MEAN = (123.675, 116.28, 103.53)
 PIXEL_STD = (58.395, 57.12, 57.375)
 
 
-@functools.lru_cache(maxsize=8)
-def _relpos(n_query: int, device: str) -> torch.Tensor:
-    return torch.from_numpy(query_relpos_grid(int(round(n_query ** 0.5)))).to(device)
-
-
 def loss_fn(model: MDQEModel, crit_cfg: CriterionCfg, batch, generator=None,
             dropout_rate: float = 0.1, reid_priorities=None,
             match_stride: int = MATCH_STRIDE, pixel_mean=PIXEL_MEAN, pixel_std=PIXEL_STD,
@@ -172,8 +166,9 @@ def loss_fn(model: MDQEModel, crit_cfg: CriterionCfg, batch, generator=None,
                                                      match_stride)
         targets = {"labels": batch["labels"], "ids": batch["ids"], "boxes": batch["boxes"],
                    "valid": batch["valid"], "match_masks": match_masks, "masks8": masks8}
-        return criterion_apply(crit_cfg, out, targets, _relpos(crit_cfg.n_query, str(dev)),
-                               generator, reid_priorities, amp, group)
+        relpos = query_relpos_grid(int(round(crit_cfg.n_query ** 0.5)), dev)
+        return criterion_apply(crit_cfg, out, targets, relpos, generator, reid_priorities,
+                               amp, group)
 
 
 BUCKET_BYTES = 25 * 2 ** 20  # gradient bytes per all-reduce

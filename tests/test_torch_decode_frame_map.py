@@ -1,11 +1,14 @@
-"""The clip decode's frame map (``models/meta.py::decode_clips_batched``,
-``models/decoder.py::FrameMap``): where a decode batch's clips share
-frames, each decoder site projects each distinct frame once and reads the
-clips' rows through the map. On the CPU at a tiny size, against the
-per-clip decode the map replaced (kept here as the oracle): the same slabs,
-the counters ``vis.decode_rows`` / ``vis.decode_proj_frames``, no
-``decoder.tca.wait`` in the VIS decode, and the training and COCO paths
-left on the per-clip code."""
+"""The decoder's one input path (``models/decoder.py::FrameMap``): every
+decoder call reads its frames through a map, each site projecting each
+distinct frame once. ``models/meta.py::decode_clips_batched`` builds the VIS
+decode's map on the host (``clip_frame_map``) and uploads it with the batch;
+called without a map, the decoder builds one on the device whose rows are
+their own frames (``own_frame_map``). On the CPU at a tiny size, against
+the decoder called without a map on every clip-frame row (the oracle): the
+same slabs, the counters ``vis.decode_rows`` / ``vis.decode_proj_frames``;
+the two map builders against each other, the relative-position grid
+against the JAX package's, no span or synchronizing call inside the
+decoder, and a training step after VIS inference in one process."""
 import inspect
 
 import numpy as np
@@ -13,7 +16,8 @@ import pytest
 import torch
 
 from mdqe_cvpr2023_tpu_torch.models import attention, meta
-from mdqe_cvpr2023_tpu_torch.models.decoder import clip_frame_map, tca_frames
+from mdqe_cvpr2023_tpu_torch.models.decoder import (clip_frame_map, own_frame_map,
+                                                    query_relpos_grid, tca_frames)
 from mdqe_cvpr2023_tpu_torch.models.detr import MDQEModel, MDQEModelCfg
 from mdqe_cvpr2023_tpu_torch.utils import tracing
 
@@ -55,8 +59,8 @@ def windows(models):
 
 
 def per_clip_decode(model, enc, mflat, maskf, offsets, shapes, T):
-    """The decode without a frame map: every clip-frame row gathered and
-    projected on its own."""
+    """The decoder called without a frame map on every clip-frame row
+    gathered: the rows are their own frames, each projected on its own."""
     S = len(offsets)
     idx = torch.tensor([o + t for o in offsets for t in range(T)])
     mfe = maskf.index_select(0, idx)
@@ -102,9 +106,9 @@ def test_frame_map_decode_matches_the_per_clip_decode(models, windows, case):
     assert req.counters["vis.decode_rows"] == len(offsets) * T
     assert req.counters["vis.decode_proj_frames"] == F
     assert "decoder.tca.wait" not in req.spans
-    # the map rides in the decode's one upload: the decode's syncs are that
-    # upload, the slab's constant and the association's relative positions
-    assert req.counters["vis.syncs"] == 3
+    # the map rides in the decode's one upload and the decoder uploads
+    # nothing: the decode's syncs are that upload and the slab's constant
+    assert req.counters["vis.syncs"] == 2
 
 
 def test_clip_frame_map_indexes_each_row_and_temporal_level():
@@ -116,6 +120,25 @@ def test_clip_frame_map_indexes_each_row_and_temporal_level():
     assert [frames[i] for i in tca] == [o + t for o in (3, 4, 4) for t in levels]
     _, _, tca = clip_frame_map([0, 1, 1, 2], 2, 4)          # levels padded with the last
     assert tca == [0, 1, 1, 1, 1, 2, 2, 2]
+
+
+@pytest.mark.parametrize("B,T,n_frames_train", [(2, 4, 4), (2, 2, 4), (1, 1, 4), (2, 4, 2)])
+def test_own_frame_map_is_the_host_map_of_rows_that_are_their_own_frames(B, T,
+                                                                          n_frames_train):
+    frames, rows, tca = clip_frame_map(range(B * T), T, n_frames_train)
+    fm = own_frame_map(B * T, T, n_frames_train, "cpu")
+    assert frames == rows == list(range(B * T))
+    assert fm.rows.dtype == fm.tca.dtype == torch.long
+    assert fm.rows.tolist() == rows
+    assert fm.tca.tolist() == tca
+
+
+@pytest.mark.parametrize("n_bins", [4, 14])
+def test_relpos_grid_on_the_device_matches_jax(n_bins):
+    from mdqe_cvpr2023_tpu.models.decoder import query_relpos_grid as jax_grid
+    got = query_relpos_grid(n_bins, "cpu")
+    assert got.dtype == torch.long
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jax_grid(n_bins)))
 
 
 # the three VIS cells' schedules: (video frames, T, window, training frames,
@@ -163,10 +186,11 @@ def value_rows_seen(monkeypatch):
 
 
 @pytest.mark.parametrize("path", ["forward_train", "coco"])
-def test_training_and_coco_decode_keep_the_per_clip_path(models, windows, value_rows_seen,
-                                                         path):
-    """No frame map outside the VIS decode: every site projects its rows,
-    and the temporal site indexes its frames on the host."""
+def test_training_and_coco_decode_read_through_the_frame_map(models, windows, value_rows_seen,
+                                                             path):
+    """Called without a map, the decoder reads its rows through the map it
+    builds on the device: every site gets rows, and the decoder opens no
+    span and makes no synchronizing call."""
     model = models[2]
     enc, mflat, _, shapes = windows[2]
     dec = model.detr.transformer_dec
@@ -179,8 +203,40 @@ def test_training_and_coco_decode_keep_the_per_clip_path(models, windows, value_
             dec.forward_train(enc[:4], mflat[:4], shapes, T)
     sites = [s for s, _ in value_rows_seen]
     assert sites == ["decoder_box", "decoder_inst"] * TINY["dec_layers"]
-    assert all(rows is None for _, rows in value_rows_seen)
-    assert req.spans["decoder.tca.wait"][0] == TINY["dec_layers"]
+    assert all(isinstance(rows, torch.Tensor) for _, rows in value_rows_seen)
+    assert not [n for n in req.spans if n.startswith("decoder.")]
+    assert not [n for n in req.spans if n.endswith(".wait")]
+    assert not req.counters.get("train.syncs")
+
+
+def _trainable_model():
+    model = MDQEModel(MDQEModelCfg(**TINY, n_frames=2), device="cpu", seed=5)
+    model.set_trainable()
+    return model
+
+
+def _train_grads(model, enc, mflat, shapes, T):
+    out = model.detr.transformer_dec.forward_train(enc, mflat, shapes, T)
+    loss = sum(out[k].sum() for k in ("cls", "boxes", "mask_coeff", "proto"))
+    model.zero_grad(set_to_none=True)
+    loss.backward()
+    return {n: p.grad for n, p in model.named_parameters() if p.grad is not None}
+
+
+def test_training_after_inference_in_one_process_matches_a_fresh_model(windows):
+    """Whatever the decoder makes on the device under ``inference_mode`` (the
+    map, the relative-position grid) leaves a later training step's
+    gradients as a fresh model's."""
+    enc, mflat, _, shapes = windows[2]
+    enc, mflat = enc[:4].clone(), mflat[:4].clone()   # normal tensors: autograd saves them
+    used = _trainable_model()
+    with torch.inference_mode():
+        used.detr.transformer_dec(enc, mflat, shapes, 2)
+    got = _train_grads(used, enc, mflat, shapes, 2)
+    want = _train_grads(_trainable_model(), enc, mflat, shapes, 2)
+    assert got.keys() == want.keys() and len(got) > 0
+    for n in want:
+        assert torch.equal(got[n], want[n]), n
 
 
 def test_decode_clips_batched_keeps_its_signature():

@@ -184,7 +184,11 @@ def test_msdeformattn_matches_jax(mode, pred_offsets):
     lead = (B, N) if mode == "spatial" else (B, 3, N)
     src = rng.standard_normal(lead + (C,)).astype(np.float32)
     pmask = rng.random(lead) < 0.15
-    got = module(_t(query), _t(ref), _t(src), shapes, _t(pmask))
+    if mode == "spatial":
+        got = module(_t(query), _t(ref), _t(src), shapes, _t(pmask))
+    else:   # the clips' B*3 frames, each clip's levels read through their own rows
+        got = module(_t(query), _t(ref), _t(src).reshape(B * 3, N, C), shapes,
+                     _t(pmask).reshape(B * 3, N), torch.arange(B * 3))
     want = jatt.ms_deform_attn_module(params, jatt.MSDeformAttnCfg(**cfg_kw),
                                       jnp.asarray(query), jnp.asarray(ref),
                                       jnp.asarray(src), shapes, jnp.asarray(pmask))
