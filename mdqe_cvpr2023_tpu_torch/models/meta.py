@@ -7,24 +7,29 @@ deferred per-window mask finalization and the video-level merge; and
 The schedule is the JAX package's: clips of ``n_frames_test`` frames every
 ``clip_stride`` frames, a tail clip shifted back to the last full clip,
 windows of ``n_frames_window_test`` frames encoded ``encode_chunk`` frames at
-a time, S = 8 clips of a window decoded in one batch, and at the video end the
-final top-k chosen first so that only the selected rows of deferred windows
-are upsampled; the results' masks are assembled on the device and copied to
-the host once.
+a time, each window's encode queued as the clip loop enters the window
+before it (on a card on a side stream, which the loop's stream waits on
+before the window's first decode), S = 8 clips of a window decoded in one
+batch, and at the video end the final top-k chosen first so that only the
+selected rows of deferred windows are upsampled; the results' masks are
+assembled on the device and copied to the host once.
 
 ``inference_vis(devices=[...])`` (the JAX package's ``mesh=``) shards the
 window encode by frames: one process, each chunk's frames split evenly over
 the devices, each device encoding its share with its own copy of the
 weights, and the three outputs gathered onto the first device, where the
-decoder, the tracker and the finalize run.
+decoder, the tracker and the finalize run. It encodes each window when the
+clip loop reaches it, on the devices' current streams.
 
 Both record on the port's tracer (``utils/tracing.py``): ``inference_vis``
 is the request ``vis.video`` with spans ``vis.encode_weights``,
 ``vis.upload``, ``vis.encode``, ``vis.decode``, ``vis.track`` (with
 ``vis.track.assign`` and the waits of ``tracker_step``), ``vis.window``,
 ``vis.finalize`` and ``vis.merge``, a ``*.wait`` span around every read of
-a device tensor and every upload from host memory (each synchronizes the
-stream), and the counters ``vis.clips``, ``vis.lsa_cells``,
+a device tensor and every upload from pageable host memory (each
+synchronizes the stream; the frames go up from pinned memory and do not),
+and the counters ``vis.clips``, ``vis.encode_ahead_frames`` (the frames of
+windows queued before the clip loop reached them), ``vis.lsa_cells``,
 ``vis.merge_results``, ``vis.merge_bytes``, ``vis.decode_rows`` and
 ``vis.decode_proj_frames`` (``decode_clips_batched``) and, where ``slab_hbm_budget``
 finalizes a window early, ``vis.evict_windows``, ``vis.evict_rows`` (its
@@ -34,6 +39,7 @@ live rows) and ``vis.evict_bytes`` (their packed masks kept on the device);
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import itertools
 import weakref
@@ -265,6 +271,54 @@ def _encoders(model: MDQEModel, devices, bf16_encode: bool, pixel_mean, pixel_st
     return [by_device[d] for d in devices]
 
 
+# card -> (the clip loop's stream, at a higher priority than the encode's,
+# the side stream the window encodes run on), kept across calls
+_VIS_STREAMS = {}
+
+
+def _vis_streams(device: torch.device):
+    streams = _VIS_STREAMS.get(device)
+    if streams is None:
+        streams = _VIS_STREAMS[device] = (torch.cuda.Stream(device=device, priority=-1),
+                                          torch.cuda.Stream(device=device))
+    return streams
+
+
+def _encode_stream(device: torch.device):
+    """The stream on which a card encodes the windows ahead of the clip
+    loop; None on the CPU."""
+    return _vis_streams(device)[1] if device.type == "cuda" else None
+
+
+@contextlib.contextmanager
+def _loop_stream(device: torch.device):
+    """On a card, run the block on the clip loop's stream, whose kernels the
+    card schedules before the encode's: it waits on the caller's stream
+    first, and the caller's stream waits on it after."""
+    if device.type != "cuda":
+        yield
+        return
+    caller = torch.cuda.current_stream(device)
+    loop = _vis_streams(device)[0]
+    loop.wait_stream(caller)
+    try:
+        with torch.cuda.stream(loop):
+            yield
+    finally:
+        caller.wait_stream(loop)
+
+
+def _upload(frames: np.ndarray, device: torch.device):
+    """``frames`` (host uint8) as a new tensor on ``device``. To a card the
+    copy is queued on the current stream from pinned memory and does not
+    block the host; torch's caching host allocator hands a pinned block out
+    again only once its copy has finished."""
+    host = torch.from_numpy(np.ascontiguousarray(frames))
+    if device.type == "cuda":
+        host = torch.empty(host.shape, dtype=host.dtype, pin_memory=True).copy_(host)
+    return host.to(device, non_blocking=True)
+
+
 def decode_clips_batched(model: MDQEModel, window_encoded, window_mask_flat,
                          window_mask_feats, offsets, spatial_shapes, n_frames: int,
                          apply_cls_thres: float, topk: int, dedup_sim: float = 0.99):
@@ -406,8 +460,10 @@ def inference_vis(model: MDQEModel, inf_cfg: InferenceCfg, frames: np.ndarray,
 
     frames: (T, Hp, Wp, 3) padded uint8 on the host; image_size: true (h, w)
     before padding; ori_size: the video's original (h, w). Runs on the card
-    unless ``device="cpu"``; the model must be on that device. One request
-    ``vis.video`` of the tracer, with attrs ``clips``, ``windows`` and
+    unless ``device="cpu"``; the model must be on that device. On a card the
+    call runs on streams of its own (``_loop_stream``, ``_encode_stream``),
+    after the caller's current stream, which waits for it on return. One
+    request ``vis.video`` of the tracer, with attrs ``clips``, ``windows`` and
     ``frames``. ``devices`` (a list, which may repeat a device):
     the window encode is sharded by frames over them, the encode chunk
     rounded up to a multiple of their number; everything else runs on the
@@ -429,7 +485,8 @@ def inference_vis(model: MDQEModel, inf_cfg: InferenceCfg, frames: np.ndarray,
     # encoder run in bf16 under bf16_encode.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    with tracing.request("vis.video", device=dev, frames=int(frames.shape[0])) as req:
+    with tracing.request("vis.video", device=dev, frames=int(frames.shape[0])) as req, \
+            _loop_stream(dev):
         return _inference_vis(req, model, inf_cfg, frames, image_size, ori_size,
                               pixel_mean, pixel_std, dev, devices)
 
@@ -481,7 +538,9 @@ def _inference_vis(req, model, inf_cfg, frames, image_size, ori_size, pixel_mean
         schedule.append((start_idx, start_eff, wstart, wend))
         if start_idx + T_clip >= video_len:
             break
-    req.attrs.update(clips=len(schedule), windows=len({s[2:] for s in schedule}))
+    # the encode windows, in the order the clip loop reaches them
+    win_keys = list(dict.fromkeys(s[2:] for s in schedule))
+    req.attrs.update(clips=len(schedule), windows=len(win_keys))
     tracing.count("vis.clips", len(schedule))
 
     # even frame sharding: the chunk is a multiple of the number of devices
@@ -490,39 +549,70 @@ def _inference_vis(req, model, inf_cfg, frames, image_size, ori_size, pixel_mean
     with tracing.wait("vis.upload.wait", syncs=len(encoders)):
         sizes = [torch.tensor([list(image_size)] * share, dtype=torch.int32,
                               device=e[2].device) for e in encoders]
-    window = {}  # the current window only: clips visit windows in order
+    # With one encoder the loop queues window w + 1's uploads and encode as
+    # it enters window w, before w's decode batches and tracker steps: on a
+    # card on a side stream, so that the card encodes w + 1 while the host
+    # issues w's decode and tracker (whose stream the card serves first).
+    # The sharded encode keeps one window at a time.
+    ahead = len(encoders) == 1
+    tracing.count("vis.encode_ahead_frames", 0)   # 0 where nothing is queued ahead
+    side = _encode_stream(dev) if ahead else None
+    loop = torch.cuda.current_stream(dev) if side is not None else None
+    if side is not None:   # the encode weights, sizes, mean and std come first
+        side.wait_stream(loop)
+    window = {}  # window index -> [encodings, the side stream's event or None]
 
-    def get_window(ws, we):
-        if ws not in window:
-            window.clear()
-            wf = frames[ws:we]
-            wlen = -(-wf.shape[0] // chunk) * chunk
-            if wf.shape[0] < wlen:  # pad the tail window to a chunk multiple
-                wf = np.concatenate([wf] + [wf[-1:]] * (wlen - wf.shape[0]))
-            parts = []
+    def queue_window(w):
+        """Upload and encode window ``w``; returns its frames, padded to a
+        chunk multiple."""
+        ws, we = win_keys[w]
+        wf = frames[ws:we]
+        wlen = -(-wf.shape[0] // chunk) * chunk
+        if wf.shape[0] < wlen:  # pad the tail window to a chunk multiple
+            wf = np.concatenate([wf] + [wf[-1:]] * (wlen - wf.shape[0]))
+        parts = []
+        with torch.cuda.stream(side):   # no-op for None
             for c0 in range(0, wlen, chunk):
                 with tracing.span("vis.upload"):
-                    f = []
-                    for k, e in enumerate(encoders):
-                        host = torch.from_numpy(np.ascontiguousarray(
-                            wf[c0 + k * share:c0 + (k + 1) * share]))
-                        with tracing.wait("vis.upload.wait"):
-                            f.append(host.to(e[2].device))
+                    f = [_upload(wf[c0 + k * share:c0 + (k + 1) * share], e[2].device)
+                         for k, e in enumerate(encoders)]
                 with tracing.span("vis.encode"):
                     # every device's share is issued before any is gathered
                     outs = [encode_window(enc, fk, sk, mean, std, shapes, bf16)
                             for fk, sk, (enc, bf16, mean, std) in zip(f, sizes, encoders)]
                     parts.append(outs[0] if len(outs) == 1 else tuple(
                         torch.cat([o[j].to(dev) for o in outs]) for j in range(3)))
-            window[ws] = tuple(torch.cat([p[j] for p in parts]) for j in range(3))
-        return window[ws]
+            out = tuple(torch.cat([p[j] for p in parts]) for j in range(3))
+            event = None
+            if side is not None:   # read on the loop's stream: not reused before it has
+                for t in out:
+                    t.record_stream(loop)
+                event = torch.cuda.Event()
+                event.record(side)
+        window[w] = [out, event]
+        return wlen
 
-    groups = []  # (window key, schedule indices), at most S_BATCH clips each
-    for i, (_, _, ws, we) in enumerate(schedule):
-        if groups and groups[-1][0] == (ws, we) and len(groups[-1][1]) < S_BATCH:
+    def get_window(w):
+        for k in [k for k in window if k < w]:
+            del window[k]
+        if w not in window:
+            queue_window(w)
+        if ahead and w + 1 < len(win_keys) and w + 1 not in window:
+            tracing.count("vis.encode_ahead_frames", queue_window(w + 1))
+        entry = window[w]
+        if entry[1] is not None:   # the loop's stream waits for the encode, the host does not
+            loop.wait_event(entry[1])
+            entry[1] = None
+        return entry[0]
+
+    win_of = {k: w for w, k in enumerate(win_keys)}
+    groups = []  # (window index, schedule indices), at most S_BATCH clips each
+    for i, sched in enumerate(schedule):
+        w = win_of[sched[2:]]
+        if groups and groups[-1][0] == w and len(groups[-1][1]) < S_BATCH:
             groups[-1][1].append(i)
         else:
-            groups.append(((ws, we), [i]))
+            groups.append((w, [i]))
     batch_of_clip = {i: (g, j) for g, (_, idxs) in enumerate(groups)
                      for j, i in enumerate(idxs)}
     batch_res = {}
@@ -539,8 +629,9 @@ def _inference_vis(req, model, inf_cfg, frames, image_size, ori_size, pixel_mean
 
         g, j = batch_of_clip[i]
         if g not in batch_res:
-            (ws, we), idxs = groups[g]
-            enc, mflat, maskf = get_window(ws, we)
+            w, idxs = groups[g]
+            ws = win_keys[w][0]
+            enc, mflat, maskf = get_window(w)
             # Clamped into the window as the JAX package's dynamic_slice clamps:
             # a shifted tail clip that starts before its window decodes the
             # window's first frames (ROADMAP, "Faults found").

@@ -291,7 +291,9 @@ class _DeviceReads(TorchFunctionMode):
     """The calls that would synchronize on a card, counted on the CPU: a
     read of a tensor on the host (``.cpu()``, ``int()``, ``.item()``, ...)
     and an upload of host data (``torch.tensor(device=)``, ``.to(device)``,
-    an index given as a list), with the spans open at each."""
+    an index given as a list), with the spans open at each. A
+    ``.to(device, non_blocking=True)`` (the frames' upload from pinned
+    memory) does not synchronize."""
     READS = {"cpu", "item", "tolist", "__int__", "__float__", "__bool__", "__index__"}
 
     def __init__(self):
@@ -303,8 +305,9 @@ class _DeviceReads(TorchFunctionMode):
         name = getattr(func, "__name__", "")
         if (name in self.READS
                 or (name in ("tensor", "as_tensor") and "device" in kwargs)
-                or (name == "to" and ("device" in kwargs or any(
-                    isinstance(a, (torch.device, str)) for a in args[1:])))
+                or (name == "to" and not kwargs.get("non_blocking") and (
+                    "device" in kwargs or any(
+                        isinstance(a, (torch.device, str)) for a in args[1:])))
                 or (name in ("__getitem__", "__setitem__") and _list_index(args[1]))):
             self.reads.append((name, tracing.open_spans()))
         return func(*args, **kwargs)
